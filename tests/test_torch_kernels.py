@@ -1,0 +1,113 @@
+"""The CLAHE kernels' plain versions (waternet_tpu_torch.ops.kernels)
+against the JAX package's Pallas kernels run in interpret mode, as
+tests/test_pallas.py runs them; the wrappers' routing and launch counters;
+and the kernel source and build settings. Every comparison is bit for bit:
+both sides are integer pipelines or exact lookups.
+
+The CUDA kernels themselves run only on the card, where ``chip_smoke.py``
+holds each against its plain version.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from waternet_tpu.ops import pallas_kernels as pk
+from waternet_tpu.ops.clahe import _cell_tile_indices
+from waternet_tpu_torch.ops import _build, kernels
+
+
+@pytest.mark.parametrize("t,area", [(4, 196), (3, 77), (9, 121), (5, 2048), (1, 5000)])
+def test_plain_tile_lut_matches_pallas_interpret(t, area):
+    """(T, A) tiles as T images of one 1 x A tile each."""
+    rng = np.random.default_rng(t * 10_000 + area)
+    tiles = rng.integers(0, 256, size=(t, area)).astype(np.uint8)
+    clip = max(int(0.1 * area / 256.0), 1)
+    scale = np.float32(255.0) / np.float32(area)
+    want = np.asarray(pk.tile_lut(jnp.asarray(tiles), clip, scale, interpret=True))
+    got = kernels.tile_lut(torch.from_numpy(tiles[:, None, :]), (1, 1), clip, scale)
+    assert got.shape == (t, 1, 1, 256) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.reshape(t, 256).numpy(), want)
+
+
+def test_plain_tile_lut_tile_layout_matches_pallas_interpret():
+    """A real 8x8 grid over (2, 64, 96) planes: tile (i, j) of image n is
+    row n * 64 + i * 8 + j of the JAX kernel's (T, A) input."""
+    rng = np.random.default_rng(1)
+    planes = rng.integers(0, 256, size=(2, 64, 96)).astype(np.uint8)
+    tiles = planes.reshape(2, 8, 8, 8, 12).transpose(0, 1, 3, 2, 4).reshape(128, 96)
+    clip, scale = 1, np.float32(255.0) / np.float32(96)
+    want = np.asarray(pk.tile_lut(jnp.asarray(tiles), clip, scale, interpret=True))
+    got = kernels.tile_lut_plain(torch.from_numpy(planes), (8, 8), clip, scale)
+    np.testing.assert_array_equal(got.reshape(128, 256).numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "hw,grid",
+    [
+        ((19, 23), (3, 4)),  # odd tiles both axes
+        ((33, 17), (5, 3)),  # odd tiles, divisibility padding
+        ((40, 56), (4, 7)),  # even-H cells, odd-W cells
+        ((64, 64), (8, 8)),  # even half-tile cells
+    ],
+)
+def test_plain_clahe_lut_planes_matches_pallas_interpret(hw, grid):
+    rng = np.random.default_rng(hw[0] + hw[1])
+    ty, tx = grid
+    hp, wp = -(-hw[0] // ty) * ty, -(-hw[1] // tx) * tx
+    th, tw = hp // ty, wp // tx
+    v = rng.integers(0, 256, size=(hp, wp)).astype(np.uint8)
+    luts = rng.integers(0, 256, size=(ty, tx, 256)).astype(np.float32)
+    cell_h, cells_y = _cell_tile_indices(hp, th, ty)
+    cell_w, cells_x = _cell_tile_indices(wp, tw, tx)
+    want = pk.clahe_lut_planes(
+        jnp.asarray(luts), jnp.asarray(v), cells_y, cells_x, cell_h, cell_w,
+        interpret=True,
+    )
+    y1, y2 = kernels.tile_indices(hp, th, ty)
+    x1, x2 = kernels.tile_indices(wp, tw, tx)
+    # The per-pixel indices are the JAX cell indices expanded to pixels.
+    for mine, cells, cell in ((y1, cells_y[0], cell_h), (y2, cells_y[1], cell_h),
+                              (x1, cells_x[0], cell_w), (x2, cells_x[1], cell_w)):
+        np.testing.assert_array_equal(mine, np.repeat(cells, cell))
+    got = kernels.clahe_lut_planes(
+        torch.from_numpy(luts[None]), torch.from_numpy(v[None]),
+        *(torch.from_numpy(a) for a in (y1, y2, x1, x2)),
+    )
+    assert got.shape == (4, 1, hp, wp)
+    for q in range(4):
+        np.testing.assert_array_equal(got[q, 0].numpy(), np.asarray(want[q]))
+
+
+def test_cpu_tensors_route_to_plain_and_leave_counters():
+    kernels.reset_launches()
+    planes = torch.zeros((1, 16, 16), dtype=torch.uint8)
+    luts = kernels.tile_lut(planes, (8, 8), 1, np.float32(255.0) / np.float32(4))
+    y1, y2 = (torch.from_numpy(a) for a in kernels.tile_indices(16, 2, 8))
+    kernels.clahe_lut_planes(luts, planes, y1, y2, y1, y2)
+    assert kernels.LAUNCHES == {"tile_lut": 0, "clahe_lut_planes": 0}
+
+
+def test_other_devices_are_refused():
+    planes = torch.zeros((1, 16, 16), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        kernels.tile_lut(planes, (8, 8), 1, 1.0)
+
+
+def test_grid_must_divide_the_padded_plane():
+    with pytest.raises(ValueError, match="not divisible"):
+        kernels.tile_lut(torch.zeros((1, 15, 16), dtype=torch.uint8), (8, 8), 1, 1.0)
+
+
+def test_kernel_source_and_build_flags():
+    src = _build.SOURCE.read_text()
+    for name in ("clahe_tile_lut_kernel", "clahe_lut_planes_kernel",
+                 "waternet_clahe_tile_lut", "waternet_clahe_lut_planes"):
+        assert name in src
+    assert "rintf" in src and "roundf" not in src
+    assert _build.ARCH == "sm_90a"
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")

@@ -1,0 +1,5 @@
+from waternet_tpu_torch.models.waternet import (  # noqa: F401
+    ConfidenceMapGenerator,
+    Refiner,
+    WaterNet,
+)

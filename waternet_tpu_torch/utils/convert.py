@@ -1,0 +1,57 @@
+"""Weights between the JAX package's param tree and the port's state_dict.
+
+The JAX tree is ``{"params": {module: {"Conv_i": {"kernel", "bias"}}}}``
+with HWIO kernels; the port's (and the reference's) state_dict keys are
+``{module}.conv{i+1}.{weight,bias}`` with OIHW weights. Pure relayout: no
+value changes, so the round trip is exact.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from waternet_tpu_torch.utils.checkpoint import unflatten
+
+# Module name -> conv count (the reference's net.py layout).
+WATERNET_MODULES = {"cmg": 8, "wb_refiner": 3, "ce_refiner": 3, "gc_refiner": 3}
+
+
+def _nested(params: dict) -> dict:
+    """Accept the nested tree or its flat ``a/b/c`` npz keys; return the
+    per-module dict (the content of ``params["params"]``)."""
+    if any("/" in k for k in params):
+        params = unflatten(params)
+    return params["params"] if "params" in params else params
+
+
+def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX WaterNet params (numpy arrays, nested or flat keys) -> state_dict."""
+    tree = _nested(params)
+    sd = {}
+    for mod, n_convs in WATERNET_MODULES.items():
+        for i in range(n_convs):
+            conv = tree[mod][f"Conv_{i}"]
+            kernel = np.asarray(conv["kernel"], dtype=np.float32)
+            sd[f"{mod}.conv{i + 1}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))
+            )
+            sd[f"{mod}.conv{i + 1}.bias"] = torch.from_numpy(
+                np.asarray(conv["bias"], dtype=np.float32).copy()
+            )
+    return sd
+
+
+def jax_from_state_dict(sd: dict) -> dict:
+    """state_dict -> the JAX package's nested param tree, numpy arrays."""
+    tree: dict = {}
+    for mod, n_convs in WATERNET_MODULES.items():
+        tree[mod] = {}
+        for i in range(n_convs):
+            w = sd[f"{mod}.conv{i + 1}.weight"].detach().cpu().numpy()
+            b = sd[f"{mod}.conv{i + 1}.bias"].detach().cpu().numpy()
+            tree[mod][f"Conv_{i}"] = {
+                "kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+                "bias": b.copy(),
+            }
+    return {"params": tree}
