@@ -1,8 +1,9 @@
-"""The CLAHE kernels' plain versions (waternet_tpu_torch.ops.kernels)
-against the JAX package's Pallas kernels run in interpret mode, as
+"""The kernels' plain versions (waternet_tpu_torch.ops.kernels) against
+the JAX package's Pallas kernels run in interpret mode, as
 tests/test_pallas.py runs them; the wrappers' routing and launch counters;
-and the kernel source and build settings. Every comparison is bit for bit:
-both sides are integer pipelines or exact lookups.
+and the kernel sources and build settings. Every CLAHE comparison is bit
+for bit: both sides are integer pipelines or exact lookups. (The dct8
+kernel's plain version is held against JAX in tests/test_torch_codec.py.)
 
 The CUDA kernels themselves run only on the card, where ``chip_smoke.py``
 holds each against its plain version.
@@ -87,7 +88,58 @@ def test_cpu_tensors_route_to_plain_and_leave_counters():
     luts = kernels.tile_lut(planes, (8, 8), 1, np.float32(255.0) / np.float32(4))
     y1, y2 = (torch.from_numpy(a) for a in kernels.tile_indices(16, 2, 8))
     kernels.clahe_lut_planes(luts, planes, y1, y2, y1, y2)
-    assert kernels.LAUNCHES == {"tile_lut": 0, "clahe_lut_planes": 0}
+    hist = kernels.tile_histogram(planes, (8, 8))
+    assert hist.dtype == torch.int32 and hist.shape == (1, 8, 8, 256)
+    out = kernels.dct8_dequant_idct(
+        torch.zeros((3, 16), dtype=torch.int8), torch.ones(16), torch.ones((16, 64))
+    )
+    assert out.shape == (3, 64) and not out.any()
+    assert kernels.LAUNCHES == {
+        "tile_lut": 0, "clahe_lut_planes": 0, "tile_histogram": 0, "dct8_dequant_idct": 0,
+    }
+
+
+@pytest.mark.parametrize("t,area", [(4, 196), (64, 196), (3, 5000)])
+def test_plain_tile_histogram_matches_pallas_interpret(t, area):
+    """The shapes of tests/test_pallas.py; (T, A) tiles as T images of one
+    1 x A tile each."""
+    rng = np.random.default_rng(t * 7 + area)
+    tiles = rng.integers(0, 256, size=(t, area)).astype(np.uint8)
+    want = np.asarray(pk.tile_histogram(jnp.asarray(tiles), interpret=True))
+    got = kernels.tile_histogram(torch.from_numpy(tiles[:, None, :]), (1, 1))
+    assert got.shape == (t, 1, 1, 256) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.reshape(t, 256).numpy(), want)
+
+
+def test_plain_tile_histogram_tile_layout_matches_pallas_interpret():
+    """An 8x8 grid over (2, 64, 96) planes: tile (i, j) of image n is row
+    n * 64 + i * 8 + j of the JAX kernel's (T, A) input."""
+    rng = np.random.default_rng(2)
+    planes = rng.integers(0, 256, size=(2, 64, 96)).astype(np.uint8)
+    tiles = planes.reshape(2, 8, 8, 8, 12).transpose(0, 1, 3, 2, 4).reshape(128, 96)
+    want = np.asarray(pk.tile_histogram(jnp.asarray(tiles), interpret=True))
+    got = kernels.tile_histogram_plain(torch.from_numpy(planes), (8, 8))
+    np.testing.assert_array_equal(got.reshape(128, 256).numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 40, 56), (3, 24, 24)])
+def test_tile_lut_plain_is_luts_from_tile_histogram(shape):
+    """tile_lut's plain version is the plain histogram then luts_from_hist,
+    the identity chip_smoke.py checks between the two CUDA kernels."""
+    rng = np.random.default_rng(sum(shape))
+    planes = torch.from_numpy(rng.integers(0, 256, size=shape).astype(np.uint8))
+    area = (shape[1] // 8) * (shape[2] // 8)
+    clip, scale = max(int(0.1 * area / 256.0), 1), np.float32(255.0) / np.float32(area)
+    hist = kernels.tile_histogram_plain(planes, (8, 8))
+    assert int(hist.sum()) == planes.numel()
+    want = kernels.luts_from_hist(hist.reshape(-1, 256), clip, scale).reshape(hist.shape)
+    assert torch.equal(kernels.tile_lut_plain(planes, (8, 8), clip, scale), want)
+
+
+def test_dct8_wrapper_refuses_other_devices():
+    coef = torch.zeros((4, 16), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        kernels.dct8_dequant_idct(coef, torch.ones(16), torch.ones((16, 64)))
 
 
 def test_other_devices_are_refused():
@@ -102,10 +154,19 @@ def test_grid_must_divide_the_padded_plane():
 
 
 def test_kernel_source_and_build_flags():
-    src = _build.SOURCE.read_text()
+    assert [p.name for p in _build.SOURCES] == ["clahe.cu", "codec.cu"]
+    src = "\n".join(p.read_text() for p in _build.SOURCES)
     for name in ("clahe_tile_lut_kernel", "clahe_lut_planes_kernel",
-                 "waternet_clahe_tile_lut", "waternet_clahe_lut_planes"):
+                 "clahe_tile_histogram_kernel", "dct8_dequant_idct_kernel",
+                 "waternet_clahe_tile_lut", "waternet_clahe_lut_planes",
+                 "waternet_clahe_tile_histogram", "waternet_dct8_dequant_idct"):
         assert name in src
+    # tile_lut and tile_histogram share their histogram phase.
+    assert src.count("tile_bin_count(l, hp, wp, ty, tx, tile)") == 2
+    # The dct8 kernel rounds each op as the plain version does: no FMA.
+    codec_src = (_build.SOURCES[1]).read_text()
+    assert "__fmul_rn" in codec_src and "__fadd_rn" in codec_src
+    assert "fmaf" not in codec_src and "__fmaf" not in codec_src
     assert "rintf" in src and "roundf" not in src
     assert _build.ARCH == "sm_90a"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

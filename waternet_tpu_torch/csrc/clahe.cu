@@ -1,6 +1,6 @@
 // CLAHE kernels for Hopper (sm_90a), plain C interface bound with ctypes
-// from waternet_tpu_torch/ops/kernels.py. Both take the whole batch and
-// run on the caller's stream; neither allocates or synchronises. Each
+// from waternet_tpu_torch/ops/kernels.py. All three take the whole batch and
+// run on the caller's stream; none allocates or synchronises. Each
 // launcher returns cudaGetLastError() so the wrapper can raise on a launch
 // CUDA refused.
 //
@@ -17,6 +17,17 @@
 //   histogram to spread atomic contention on smooth tiles, and the clip,
 //   scan and LUT run in the same CTA, so the histogram never leaves shared
 //   memory. The TPU grid's chunk-to-chunk carry becomes the CTA's own loop.
+//
+// clahe_tile_histogram_kernel
+//   Replaces the TPU kernel tile_histogram (pallas_kernels.py:71
+//   _hist_kernel, pallas_call at :94, public :106): per (image, tile), the
+//   256-bin histogram as int32. The TPU kernel sums a (2048, 256) one-hot
+//   compare matrix per chunk of a transposed, -1-padded (T, A) copy; here
+//   it is phase 1 of clahe_tile_lut_kernel, the same __device__ function
+//   (tile_bin_count), reading the padded (N, hp, wp) plane with strides.
+//   Bound: bytes (1 B read per pixel, 1 KB written per tile). No path of
+//   either package calls it; luts_from_hist over its output equals
+//   tile_lut, which chip_smoke.py checks.
 //
 // clahe_lut_planes_kernel
 //   Replaces the TPU kernel clahe_lut_planes (pallas_kernels.py:229
@@ -55,16 +66,20 @@ __device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
   return v;
 }
 
-__global__ void __launch_bounds__(kLutThreads)
-clahe_tile_lut_kernel(const uint8_t* __restrict__ l, float* __restrict__ luts,
-                      int hp, int wp, int ty, int tx, int clip, float scale) {
+// Phase 1 of both tile kernels: the 256-bin histogram of tile ``tile``
+// (image * ty * tx + tile_row * tx + tile_col) of the padded plane. Every
+// one of the CTA's kLutThreads threads calls it and gets the count of bin
+// threadIdx.x. Each warp counts into its own shared-memory histogram
+// (smooth tiles put many equal values in one warp), then the per-warp
+// counts are summed.
+__device__ __forceinline__ int tile_bin_count(const uint8_t* __restrict__ l,
+                                              int hp, int wp, int ty, int tx,
+                                              int tile) {
   __shared__ int hist[kLutWarps][kBins];
-  __shared__ int warp_totals[kLutWarps];
 
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int tile = blockIdx.x;  // image * ty * tx + tile_row * tx + tile_col
   const int img = tile / (ty * tx);
   const int tile_row = (tile / tx) % ty;
   const int tile_col = tile % tx;
@@ -86,6 +101,26 @@ clahe_tile_lut_kernel(const uint8_t* __restrict__ l, float* __restrict__ luts,
   int h = 0;
 #pragma unroll
   for (int w = 0; w < kLutWarps; ++w) h += hist[w][t];
+  return h;
+}
+
+__global__ void __launch_bounds__(kLutThreads)
+clahe_tile_histogram_kernel(const uint8_t* __restrict__ l, int* __restrict__ hist,
+                            int hp, int wp, int ty, int tx) {
+  const int tile = blockIdx.x;
+  hist[(size_t)tile * kBins + threadIdx.x] = tile_bin_count(l, hp, wp, ty, tx, tile);
+}
+
+__global__ void __launch_bounds__(kLutThreads)
+clahe_tile_lut_kernel(const uint8_t* __restrict__ l, float* __restrict__ luts,
+                      int hp, int wp, int ty, int tx, int clip, float scale) {
+  __shared__ int warp_totals[kLutWarps];
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int tile = blockIdx.x;  // image * ty * tx + tile_row * tx + tile_col
+  const int h = tile_bin_count(l, hp, wp, ty, tx, tile);
 
   // Excess over the clip limit, summed over all bins.
   const int ws = warp_sum(max(h - clip, 0));
@@ -157,6 +192,15 @@ extern "C" int waternet_clahe_tile_lut(const void* l, void* luts, int n, int hp,
   const int blocks = n * ty * tx;
   clahe_tile_lut_kernel<<<blocks, kLutThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)l, (float*)luts, hp, wp, ty, tx, clip, scale);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int waternet_clahe_tile_histogram(const void* l, void* hist, int n,
+                                             int hp, int wp, int ty, int tx,
+                                             void* stream) {
+  const int blocks = n * ty * tx;
+  clahe_tile_histogram_kernel<<<blocks, kLutThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)l, (int*)hist, hp, wp, ty, tx);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,67 @@
+"""Paired augmentation on the device: the reference's flips and rot90.
+
+``HorizontalFlip(p=0.5)``, ``VerticalFlip(p=0.5)`` and
+``RandomRotate90(p=0.5)`` (k uniform in {0, 1, 2, 3} when applied), the
+same draws for the raw image and its reference, applied before the
+WB/GC/CLAHE transforms, as in the JAX package (data/augment.py:27-121).
+For a non-square batch a 90/270-degree rotation would change the shape,
+so only k == 2 (180 degrees) is applied there.
+
+The draws come from an explicit ``torch.Generator`` (the trainer's is a
+CPU generator, so the CPU and CUDA ports draw alike); they differ from
+``jax.random``'s by design. :func:`apply_augment_batch` applies given draws
+exactly as the JAX package does, which the tests pin with shared draws.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from waternet_tpu_torch.utils.tensor import to_device
+
+
+def draw_augment(generator: torch.Generator, n: int):
+    """Per-image draws ``(hflip, vflip, rotk)`` on the generator's device:
+    two (n,) bool tensors and an (n,) int32 tensor in {0, 1, 2, 3}."""
+    dev = generator.device
+    hflip = torch.rand(n, generator=generator, device=dev) < 0.5
+    vflip = torch.rand(n, generator=generator, device=dev) < 0.5
+    do_rot = torch.rand(n, generator=generator, device=dev) < 0.5
+    k = torch.randint(0, 4, (n,), generator=generator, device=dev)
+    rotk = torch.where(do_rot, k, torch.zeros_like(k)).to(torch.int32)
+    return hflip, vflip, rotk
+
+
+def apply_augment_batch(imgs: torch.Tensor, hflip, vflip, rotk) -> torch.Tensor:
+    """Apply per-image draws to an (N, H, W, C) batch -> float32.
+
+    Per image: hflip, then vflip, then ``rot90(k)`` over (H, W) (square),
+    or 180 degrees iff k == 2 (non-square). Pure data movement, selected
+    per image with ``torch.where``, so no value changes and nothing waits
+    on the host."""
+    dev = imgs.device
+    x = imgs.to(torch.float32)
+
+    hflip, vflip, rotk = (to_device(t, dev) for t in (hflip, vflip, rotk))
+
+    def pick(flag, a, b):
+        return torch.where(flag.reshape(-1, 1, 1, 1), a, b)
+
+    x = pick(hflip, x.flip(2), x)
+    x = pick(vflip, x.flip(1), x)
+    if x.shape[1] == x.shape[2]:
+        out = x
+        for k in (1, 2, 3):
+            out = pick(rotk == k, torch.rot90(x, k, dims=(1, 2)), out)
+        return out
+    return pick(rotk == 2, torch.rot90(x, 2, dims=(1, 2)), x)
+
+
+def augment_pair_batch(generator: torch.Generator, raw: torch.Tensor, ref: torch.Tensor):
+    """Paired flips/rot90 for an (N, H, W, C) batch: (raw_aug, ref_aug)
+    float32, the same uint8 values rearranged."""
+    hflip, vflip, rotk = draw_augment(generator, raw.shape[0])
+    return (
+        apply_augment_batch(raw, hflip, vflip, rotk),
+        apply_augment_batch(ref, hflip, vflip, rotk),
+    )

@@ -1,5 +1,5 @@
-"""Wrappers of the CLAHE kernels (``csrc/clahe.cu``), their plain PyTorch
-versions, and the launch counters.
+"""Wrappers of the port's CUDA kernels (``csrc/clahe.cu``,
+``csrc/codec.cu``), their plain PyTorch versions, and the launch counters.
 
 A wrapper given a CPU tensor runs the plain version. Given a CUDA tensor
 it launches the kernel, after checking device, dtype, shape and
@@ -11,13 +11,15 @@ and only those.
 wrapper             replaces (TPU kernel)                            bound by
 ==================  ===============================================  =========
 tile_lut            pallas_kernels.py:133 ``_lut_kernel`` (:201)     bytes
+tile_histogram      pallas_kernels.py:71 ``_hist_kernel`` (:106)     bytes
 clahe_lut_planes    pallas_kernels.py:229 ``_interp_kernel`` (:269)  bytes
+dct8_dequant_idct   pallas_kernels.py:330 ``_dct8_kernel`` (:366)    bytes
 ==================  ===============================================  =========
 
 The plain versions are the reference arithmetic (bincount, cumsum,
-advanced indexing). The tests hold them against the JAX kernels; on the
-card, ``chip_smoke.py`` holds each kernel against them. Nothing on the
-main path calls them on a CUDA tensor.
+advanced indexing, one rounded op at a time). The tests hold them against
+the JAX kernels; on the card, ``chip_smoke.py`` holds each kernel against
+them. Nothing on the main path calls them on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-LAUNCHES = {"tile_lut": 0, "clahe_lut_planes": 0}
+LAUNCHES = {"tile_lut": 0, "clahe_lut_planes": 0, "tile_histogram": 0, "dct8_dequant_idct": 0}
 
 _BINS = 256
 _MAX_SMEM = 232_448  # dynamic shared memory a Hopper CTA may opt into
@@ -43,7 +45,7 @@ def _route(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"CLAHE kernels take CPU or CUDA tensors, got {t.device}")
+    raise ValueError(f"the port's kernels take CPU or CUDA tensors, got {t.device}")
 
 
 def _check(name, t, dtype, shape, device):
@@ -106,8 +108,8 @@ def luts_from_hist(hist: torch.Tensor, clip: int, scale) -> torch.Tensor:
     return torch.clamp(torch.round(cdf * float(np.float32(scale))), 0.0, 255.0)
 
 
-def tile_lut_plain(l_pad: torch.Tensor, tile_grid, clip: int, scale) -> torch.Tensor:
-    """Plain version of :func:`tile_lut`: bincount, cumsum."""
+def tile_histogram_plain(l_pad: torch.Tensor, tile_grid) -> torch.Tensor:
+    """Plain version of :func:`tile_histogram`: one bincount."""
     n, hp, wp, ty, tx = _grid(l_pad, tile_grid)
     th, tw = hp // ty, wp // tx
     tiles = (
@@ -117,8 +119,38 @@ def tile_lut_plain(l_pad: torch.Tensor, tile_grid, clip: int, scale) -> torch.Te
     tile_ids = torch.arange(n_tiles, device=l_pad.device)[:, None] * _BINS
     hist = torch.bincount(
         (tiles.long() + tile_ids).reshape(-1), minlength=n_tiles * _BINS
-    ).reshape(n_tiles, _BINS)
-    return luts_from_hist(hist, clip, scale).reshape(n, ty, tx, _BINS)
+    )
+    return hist.to(torch.int32).reshape(n, ty, tx, _BINS)
+
+
+def tile_histogram(l_pad: torch.Tensor, tile_grid) -> torch.Tensor:
+    """(N, hp, wp) uint8 padded planes -> (N, ty, tx, 256) int32 per-tile
+    histograms. CUDA: one CTA per tile (csrc/clahe.cu), the histogram
+    phase of :func:`tile_lut`."""
+    if not _route(l_pad):
+        return tile_histogram_plain(l_pad, tile_grid)
+    n, hp, wp, ty, tx = _grid(l_pad, tile_grid)
+    _check("l_pad", l_pad, torch.uint8, (n, hp, wp), l_pad.device)
+    from waternet_tpu_torch.ops import _build
+
+    lib = _build.load()
+    out = torch.empty((n, ty, tx, _BINS), dtype=torch.int32, device=l_pad.device)
+    with torch.cuda.device(l_pad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.waternet_clahe_tile_histogram(
+            l_pad.data_ptr(), out.data_ptr(), n, hp, wp, ty, tx, stream
+        )
+    if err:
+        raise RuntimeError(f"clahe_tile_histogram_kernel launch failed: cudaError {err}")
+    LAUNCHES["tile_histogram"] += 1
+    return out
+
+
+def tile_lut_plain(l_pad: torch.Tensor, tile_grid, clip: int, scale) -> torch.Tensor:
+    """Plain version of :func:`tile_lut`: the plain histogram, then
+    :func:`luts_from_hist`."""
+    hist = tile_histogram_plain(l_pad, tile_grid)
+    return luts_from_hist(hist.reshape(-1, _BINS), clip, scale).reshape(hist.shape)
 
 
 def tile_lut(l_pad: torch.Tensor, tile_grid, clip: int, scale) -> torch.Tensor:
@@ -207,4 +239,57 @@ def clahe_lut_planes(luts, l_pad, y1, y2, x1, x2) -> torch.Tensor:
     if err:
         raise RuntimeError(f"clahe_lut_planes_kernel launch failed: cudaError {err}")
     LAUNCHES["clahe_lut_planes"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dct8_dequant_idct: the dct8 device-cache decode's dequantize + inverse DCT
+# ---------------------------------------------------------------------------
+
+
+def dct8_dequant_idct_plain(coef, quant, idct_m) -> torch.Tensor:
+    """Plain version of :func:`dct8_dequant_idct`. ``deq = coef * q``
+    rounds once; the 16 products are then summed in k order, one rounded
+    elementwise op at a time, so CPU and CUDA give the same bits and the
+    kernel can match them."""
+    deq = coef.to(torch.float32) * quant
+    acc = deq[:, 0:1] * idct_m[0]
+    for k in range(1, idct_m.shape[0]):
+        acc = acc + deq[:, k : k + 1] * idct_m[k]
+    return acc
+
+
+def dct8_dequant_idct(coef, quant, idct_m) -> torch.Tensor:
+    """(NB, 16) int8 zonal DCT coefficients -> (NB, 64) float32 pixel
+    blocks, level-shifted (the caller adds 128, rounds and clips).
+
+    ``quant`` is the (16,) float32 dequantization table, ``idct_m`` the
+    (16, 64) float32 coefficients -> pixels matrix
+    (:data:`waternet_tpu_torch.data.codec.DCT8_IDCT_MATRIX`). CUDA: 16
+    threads per block-channel (csrc/codec.cu)."""
+    if not _route(coef):
+        return dct8_dequant_idct_plain(coef, quant, idct_m)
+    if coef.ndim != 2:
+        raise ValueError(f"coef: expected (NB, 16), got {tuple(coef.shape)}")
+    nb = coef.shape[0]
+    dev = coef.device
+    _check("coef", coef, torch.int8, (nb, 16), dev)
+    _check("quant", quant, torch.float32, (16,), dev)
+    _check("idct_m", idct_m, torch.float32, (16, 64), dev)
+    for name, t in (("coef", coef), ("idct_m", idct_m)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (read as 16-byte vectors)")
+    from waternet_tpu_torch.ops import _build
+
+    lib = _build.load()
+    out = torch.empty((nb, 64), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.waternet_dct8_dequant_idct(
+            coef.data_ptr(), quant.data_ptr(), idct_m.data_ptr(), out.data_ptr(),
+            nb, stream,
+        )
+    if err:
+        raise RuntimeError(f"dct8_dequant_idct_kernel launch failed: cudaError {err}")
+    LAUNCHES["dct8_dequant_idct"] += 1
     return out

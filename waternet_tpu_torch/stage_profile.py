@@ -1,14 +1,19 @@
-"""Where a device-preprocess request's time goes, on one CUDA card.
+"""Where a request's or a train step's time goes, on one CUDA card.
 
     python -m waternet_tpu_torch.stage_profile [--shape 4x1080x1920] [--reps 3]
+    python -m waternet_tpu_torch.stage_profile --train [--shape 8x256x256] \
+        [--precision fp32] [--codec dct8] [--reps 3]
 
-Runs the stages of ``InferenceEngine(device_preprocess=True).enhance`` one
-after another, as the engine runs them, with CUDA events between stages,
-and prints one JSON line: the median device time of each stage, their sum,
-the host-clock latency of the whole request, and, from ``torch.profiler``,
-the device's busy and idle share over one request and its ten costliest
-kernels. Weights are the committed trained fixture; frames are made from a
-seed. Needs CUDA.
+Inference: runs the stages of ``InferenceEngine(device_preprocess=True).
+enhance`` one after another, as the engine runs them, with CUDA events
+between stages. Weights are the committed trained fixture; frames are made
+from a seed. ``--train``: the stages of one cached train step of
+``TrainingEngine`` (gather and decode, preprocess, forward, losses,
+backward, optimizer, metrics), perceptual loss on, over ``SyntheticPairs``
+(seed 0) after a warm-up epoch. Either prints one JSON line: the median
+device time of each stage, their sum, the host-clock time of the whole
+request or step, and, from ``torch.profiler``, the device's busy and idle
+share over one more and its ten costliest kernels. Needs CUDA.
 """
 
 from __future__ import annotations
@@ -23,10 +28,12 @@ import numpy as np
 import torch
 
 from waternet_tpu_torch.inference_engine import InferenceEngine
+from waternet_tpu_torch.ops.fused import fused_train_preprocess
 from waternet_tpu_torch.ops.clahe import clahe
 from waternet_tpu_torch.ops.color import lab_u8_to_rgb, rgb_to_lab_u8
 from waternet_tpu_torch.ops.gamma import gamma_correction
 from waternet_tpu_torch.ops.wb import white_balance
+from waternet_tpu_torch.training.losses import mse_255, perceptual_loss
 from waternet_tpu_torch.utils.device import gpu_card_line
 from waternet_tpu_torch.utils.synthetic import photo_frames
 from waternet_tpu_torch.utils.tensor import ten2arr
@@ -64,12 +71,124 @@ def _staged(engine, batch, events):
     return res
 
 
+def _profile(fn) -> dict:
+    """Device busy and idle share over one call of ``fn``, and its ten
+    costliest device-side events, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = []  # device-side events only (kernels, copies): no double count
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            kern.append((dev_us, e.count, e.key))
+    kern.sort(reverse=True)
+    busy_us = sum(k[0] for k in kern)
+    return {
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3 if busy_us else None,
+        "idle_share": 1.0 - busy_us / wall_us if busy_us else None,
+        "top_kernels": [
+            {"name": k[2][:90], "count": k[1], "device_ms": k[0] / 1e3} for k in kern[:10]
+        ],
+    }
+
+
+def _staged_train_step(engine, idx, gen, n_real, events):
+    """One cached train step through TrainingEngine's stages, recording a
+    CUDA event after each; returns the step's metrics."""
+
+    def stamp(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((name, ev))
+
+    stamp("start")
+    raw, ref = engine._gather_decode(engine._cache_enc, engine.config.cache_codec, idx)
+    stamp("gather_decode")
+    mask = engine._mask(raw.shape[0], n_real)
+    with torch.no_grad():
+        x, wbn, hen, gcn, refn = fused_train_preprocess(raw, ref, gen, engine.config.augment)
+    stamp("preprocess")
+    with engine._autocast():
+        out = engine.model(x, wbn, hen, gcn)
+    out = out.to(torch.float32)
+    stamp("forward")
+    mse = mse_255(out, refn, mask)
+    with engine._autocast():
+        perc = perceptual_loss(engine.vgg, out, refn, mask)
+    loss = engine.config.perceptual_weight * perc + mse
+    stamp("losses")
+    engine.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    stamp("backward")
+    engine.optimizer.step()
+    engine.scheduler.step()
+    stamp("optimizer")
+    m = engine._metrics(out.detach(), refn, {"mse": mse, "perceptual_loss": perc}, mask, loss)
+    stamp("metrics")
+    return m
+
+
+def train_main(args) -> None:
+    from waternet_tpu_torch.data.synthetic import SyntheticPairs
+    from waternet_tpu_torch.training.trainer import TrainConfig, TrainingEngine, step_generator
+
+    n, h, w = (int(v) for v in args.shape.split("x"))
+    cfg = TrainConfig(batch_size=n, im_height=h, im_width=w, precision=args.precision,
+                      cache_codec=args.codec, precache_histeq=False)
+    engine = TrainingEngine(cfg)
+    engine.cache_dataset(SyntheticPairs(4 * n, h, w, seed=0), np.arange(4 * n))
+    engine.train_epoch_cached(0)  # warm-up: cuDNN's algorithm search
+    idx = torch.arange(n, device=engine.device)
+
+    stage_ms: dict[str, list[float]] = {}
+    step = []
+    for rep in range(args.reps):
+        events = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _staged_train_step(engine, idx, step_generator(0, 1, rep), n, events)
+        torch.cuda.synchronize()
+        step.append((time.perf_counter() - t0) * 1e3)
+        for (_, a), (name, b) in zip(events, events[1:]):
+            stage_ms.setdefault(name, []).append(a.elapsed_time(b))
+    step_fn, cache_args = engine.cached_train_step()
+    medians = {k: statistics.median(v) for k, v in stage_ms.items()}
+    print(json.dumps({
+        "train_step": [n, h, w], "precision": args.precision, "codec": args.codec,
+        "card": gpu_card_line(),
+        "stage_ms": medians,
+        "stage_sum_ms": sum(medians.values()),
+        "step_ms": statistics.median(step),
+        "profiled_step": _profile(
+            lambda: step_fn(*cache_args, idx, step_generator(0, 2, 0), n)
+        ),
+    }))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--shape", default="4x1080x1920", help="NxHxW of the request")
+    ap.add_argument("--shape", help="NxHxW of the request (default 4x1080x1920) "
+                    "or of the train batch (default 8x256x256)")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--train", action="store_true", help="profile a cached train step")
+    ap.add_argument("--precision", default="fp32", choices=["fp32", "bf16"])
+    ap.add_argument("--codec", default="dct8", choices=["raw", "yuv420", "dct8"])
     args = ap.parse_args(argv)
-    n, h, w = (int(v) for v in args.shape.split("x"))
+    if args.train:
+        args.shape = args.shape or "8x256x256"
+        return train_main(args)
+    n, h, w = (int(v) for v in (args.shape or "4x1080x1920").split("x"))
 
     engine = InferenceEngine(weights=WEIGHTS, device_preprocess=True)
     batch = photo_frames(np.random.default_rng(0), n, h, w)
@@ -90,25 +209,6 @@ def main(argv=None):
             for (_, a), (name, b) in zip(events, events[1:]):
                 stage_ms.setdefault(name, []).append(a.elapsed_time(b))
 
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.enhance(batch)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kern = []  # device-side events only (kernels, copies): no double count
-    for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            kern.append((dev_us, e.count, e.key))
-    kern.sort(reverse=True)
-    busy_us = sum(k[0] for k in kern)
-
     medians = {k: statistics.median(v) for k, v in stage_ms.items()}
     print(json.dumps({
         "shape": [n, h, w],
@@ -116,14 +216,7 @@ def main(argv=None):
         "stage_ms": medians,
         "stage_sum_ms": sum(medians.values()),
         "latency_ms": statistics.median(latency),
-        "profiled_request": {
-            "wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy_us / 1e3 if busy_us else None,
-            "idle_share": 1.0 - busy_us / wall_us if busy_us else None,
-            "top_kernels": [
-                {"name": k[2][:90], "count": k[1], "device_ms": k[0] / 1e3} for k in kern[:10]
-            ],
-        },
+        "profiled_request": _profile(lambda: engine.enhance(batch)),
     }))
 
 

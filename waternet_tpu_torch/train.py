@@ -1,0 +1,221 @@
+"""Training CLI of the port: WaterNet trained from a device-resident cache.
+
+    python -m waternet_tpu_torch.train --synthetic 64 --device-cache \\
+        --cache-codec dct8 --height 256 --width 256 --batch-size 8
+
+The flags follow the JAX package's ``train.py``. The dataset is pinned on
+the device (``--device-cache``) under ``--cache-codec`` and every step
+gathers and decodes its batch there. Each run writes
+``<train-root>/<n>/{last.npz, metrics-train.csv, metrics-val.csv,
+summary.json, config.json}``; ``last.npz`` is in the JAX package's layout,
+so either package loads it. Per epoch it prints the JAX CLI's lines and
+one ``epoch_stats {...}`` JSON line: images/s, step ms (the device
+synchronised at the epoch's end), peak device memory, and each kernel's
+launches in the train and val passes.
+
+Runs on CUDA unless ``--device cpu`` is given. Host-fed training (no
+``--device-cache``) and the UIEB loader (no ``--synthetic``) are not
+ported yet and exit with a message.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_REPO_ROOT = Path(__file__).resolve().parent.parent
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--epochs", type=int, default=400, help="Number of epochs (default 400).")
+    p.add_argument("--batch-size", type=int, default=16, help="Batch size (default 16).")
+    p.add_argument("--height", type=int, default=112, help="Image height (default 112).")
+    p.add_argument("--width", type=int, default=112, help="Image width (default 112).")
+    p.add_argument("--weights", help="Starting weights: .npz (JAX layout) or the reference's .pt.")
+    p.add_argument("--seed", type=int, default=0, help="Seed (default 0).")
+    p.add_argument("--val-size", type=int, default=90, help="Validation split size (default 90).")
+    p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"],
+                   help="Model/VGG compute dtype; parameters stay fp32 (default bf16).")
+    p.add_argument("--vgg-weights", help="VGG19 weights for the perceptual loss (.npz JAX layout, or torchvision .pt).")
+    p.add_argument("--no-perceptual", action="store_true", help="Drop the VGG perceptual term.")
+    p.add_argument("--device-cache", action="store_true",
+                   help="Pin the dataset on the device and gather batches there (required: host-fed training is not ported).")
+    p.add_argument("--cache-codec", default="raw", choices=["raw", "yuv420", "dct8", "auto"],
+                   help="Codec of the device cache: raw (1x), yuv420 (2x), dct8 (4x, decoded by a CUDA kernel in the step), "
+                   "or auto (the budgeter picks the cheapest decode that fits).")
+    p.add_argument("--cache-report", action="store_true",
+                   help="Print the device-cache budget table for this dataset and size, and exit.")
+    p.add_argument("--no-precache-histeq", action="store_true",
+                   help="Keep WB/GC/CLAHE in the step (required with the raw codec: the precache tables are not ported).")
+    p.add_argument("--no-shuffle", action="store_true", help="No train shuffling.")
+    p.add_argument("--no-augment", action="store_true", help="No flips/rot90 augmentation.")
+    p.add_argument("--synthetic", type=int, default=0, metavar="N",
+                   help="Train on N synthetic pairs (required: the UIEB loader is not ported).")
+    p.add_argument("--train-root", help="Base directory of the numbered run directories (default: training/ at the repository root).")
+    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'.")
+    args = p.parse_args(argv)
+    if args.cache_codec != "raw" and not (args.device_cache or args.cache_report):
+        p.error("--cache-codec requires --device-cache")
+    if not args.synthetic:
+        p.error(
+            "reading UIEB from --data-root is not ported to waternet_tpu_torch yet "
+            "(ROADMAP Queue A item 4: the UIEB loader); use --synthetic N"
+        )
+    if not (args.device_cache or args.cache_report):
+        p.error(
+            "host-fed training is not ported to waternet_tpu_torch yet "
+            "(ROADMAP Queue A item 5: host-fed training and the pipeline); "
+            "pass --device-cache"
+        )
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    start_ts = time.perf_counter()
+    from waternet_tpu_torch.data import codec as cachecodec
+    from waternet_tpu_torch.data.synthetic import SyntheticPairs, synthetic_split
+    from waternet_tpu_torch.models.vgg import resolve_vgg_params
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.training.trainer import (
+        TRAIN_METRICS_NAMES,
+        VAL_METRICS_NAMES,
+        TrainConfig,
+        TrainingEngine,
+    )
+    from waternet_tpu_torch.utils.checkpoint import save_weights
+    from waternet_tpu_torch.utils.device import resolve_device
+    from waternet_tpu_torch.utils.rundir import next_run_dir
+
+    dev = resolve_device(args.device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    config = TrainConfig(
+        epochs=args.epochs,
+        batch_size=args.batch_size,
+        im_height=args.height,
+        im_width=args.width,
+        precision=args.precision,
+        shuffle=not args.no_shuffle,
+        seed=args.seed,
+        augment=not args.no_augment,
+        perceptual_weight=0.0 if args.no_perceptual else 0.05,
+        precache_histeq=not args.no_precache_histeq,
+        cache_codec=args.cache_codec,
+    )
+    dataset = SyntheticPairs(args.synthetic, args.height, args.width, seed=args.seed)
+    train_idx, val_idx = synthetic_split(len(dataset), args.val_size)
+
+    if args.cache_report:
+        headroom = cachecodec.resolve_headroom(dev)
+        rows = cachecodec.budget_report(
+            len(train_idx), args.height, args.width, headroom=headroom,
+            precache_histeq=config.precache_histeq,
+        )
+        for line in cachecodec.report_lines(rows, headroom):
+            print(line)
+        return 0
+
+    params = None
+    if args.weights:
+        from waternet_tpu_torch.hub import resolve_weights
+
+        params = resolve_weights(args.weights)
+    vgg_params = None if args.no_perceptual else resolve_vgg_params(args.vgg_weights)
+    engine = TrainingEngine(config, params=params, vgg_params=vgg_params, device=dev)
+    engine.cache_dataset(dataset, train_idx)
+    print(
+        f"Device cache: codec={engine.config.cache_codec} "
+        f"resident={engine.cache_resident_bytes()} bytes "
+        f"({len(train_idx)} pairs at {args.height}x{args.width})",
+        flush=True,
+    )
+
+    train_root = Path(args.train_root) if args.train_root else _REPO_ROOT / "training"
+    savedir = next_run_dir(train_root)
+    saved_train = {k: [] for k in TRAIN_METRICS_NAMES}
+    saved_val = {k: [] for k in VAL_METRICS_NAMES}
+    throughputs = []
+    n_steps = -(-len(train_idx) // config.batch_size)
+    for epoch in range(args.epochs):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        train_metrics = engine.train_epoch_cached(epoch)
+        sync()
+        train_dt = time.perf_counter() - t0
+        train_launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        val_metrics = engine.eval_epoch_cached(dataset=dataset, indices=val_idx)
+        sync()
+        dt = time.perf_counter() - t0
+        val_launches = dict(kernels.LAUNCHES)
+        ips = len(train_idx) / train_dt
+        throughputs.append(ips)
+        print(
+            f"Epoch {epoch + 1}/{args.epochs} "
+            f"[train {train_dt:.1f}s + val {dt - train_dt:.1f}s, {ips:.1f} img/s]"
+        )
+        print("    Train ||", "   ".join(f"{k}: {v:.03g}" for k, v in train_metrics.items()))
+        print("    Val   ||", "   ".join(f"{k}: {v:.03g}" for k, v in val_metrics.items()))
+        print("epoch_stats " + json.dumps({
+            "epoch": epoch + 1, "device": str(dev), "train_images": len(train_idx),
+            "steps": n_steps, "train_s": train_dt, "val_s": dt - train_dt,
+            "train_images_per_s": ips, "step_ms": train_dt / n_steps * 1e3,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+            "train": train_metrics, "val": val_metrics,
+            "launches": {"train": train_launches, "val": val_launches},
+        }), flush=True)
+        for k, v in train_metrics.items():
+            saved_train[k].append(v)
+        for k, v in val_metrics.items():
+            saved_val[k].append(v)
+        savedir.mkdir(parents=True, exist_ok=True)
+        save_weights(engine.model.state_dict(), savedir / "last.npz")
+
+    savedir.mkdir(parents=True, exist_ok=True)
+    for name, saved, cols in (
+        ("metrics-train.csv", saved_train, TRAIN_METRICS_NAMES),
+        ("metrics-val.csv", saved_val, VAL_METRICS_NAMES),
+    ):
+        arr = np.array([saved[k] for k in cols], dtype=np.float64).T.reshape(-1, len(cols))
+        np.savetxt(savedir / name, arr, fmt="%f", delimiter=",", comments="", header=",".join(cols))
+    summary = {"epochs": len(throughputs), "wall_time_sec": time.perf_counter() - start_ts}
+    if throughputs:
+        summary["train_images_per_sec_mean"] = float(np.mean(throughputs))
+        summary["train_images_per_sec_last"] = float(throughputs[-1])
+    (savedir / "summary.json").write_text(json.dumps(summary, indent=4))
+    (savedir / "config.json").write_text(json.dumps({
+        "epochs": args.epochs,
+        "batch_size": args.batch_size,
+        "im_height": args.height,
+        "im_width": args.width,
+        "weights": args.weights,
+        "precision": args.precision,
+        "shuffle": config.shuffle,
+        "augment": config.augment,
+        "device_preprocess": True,
+        "device": str(dev),
+        "cache_codec": engine.config.cache_codec,
+        "cache_resident_bytes": engine.cache_resident_bytes(),
+    }, indent=4))
+    print(f"Metrics and weights saved to {savedir}")
+    print(f"Total time: {time.perf_counter() - start_ts}s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,13 +1,16 @@
-"""Flat-npz weight loading (the JAX package's weights-only format).
+"""Flat-npz weights, the JAX package's weights-only format, both ways.
 
-Keys are ``/``-joined tree paths (``params/cmg/Conv_0/kernel``). A filename
-carrying a ``-<6 hex>`` suffix is verified against the first 6 hex chars of
-the file's sha256, the reference's hash-in-filename convention.
+Keys are ``/``-joined tree paths (``params/cmg/Conv_0/kernel``), HWIO
+kernels. A filename carrying a ``-<6 hex>`` suffix is verified against the
+first 6 hex chars of the file's sha256, the reference's hash-in-filename
+convention. :func:`save_weights` writes the same layout, so the JAX
+package and the port each load the other's ``last.npz``.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import re
 from pathlib import Path
 
@@ -38,3 +41,32 @@ def load_weights(path) -> dict:
             )
     with np.load(path) as data:
         return unflatten({k: data[k] for k in data.files})
+
+
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """Nested dict -> flat ``a/b/c`` keys (the inverse of :func:`unflatten`)."""
+    flat = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(val, dict):
+            flat.update(flatten(val, path))
+        else:
+            flat[path] = val
+    return flat
+
+
+def save_weights(state_dict: dict, path) -> Path:
+    """Save a WaterNet state_dict as the JAX package's flat npz (HWIO
+    kernels under ``params/{module}/Conv_i``), atomically: a temp file in
+    the same directory, then ``os.replace``."""
+    from waternet_tpu_torch.utils.convert import jax_from_state_dict
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.parent / f".{path.name}.tmp.npz"
+    try:
+        np.savez(tmp, **flatten(jax_from_state_dict(state_dict)))
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return path

@@ -1,9 +1,11 @@
-"""Weights between the JAX package's param tree and the port's state_dict.
+"""Weights between the JAX package's param trees and the port's state_dicts.
 
-The JAX tree is ``{"params": {module: {"Conv_i": {"kernel", "bias"}}}}``
-with HWIO kernels; the port's (and the reference's) state_dict keys are
-``{module}.conv{i+1}.{weight,bias}`` with OIHW weights. Pure relayout: no
-value changes, so the round trip is exact.
+WaterNet: the JAX tree is ``{"params": {module: {"Conv_i": {"kernel",
+"bias"}}}}`` with HWIO kernels; the port's (and the reference's) state_dict
+keys are ``{module}.conv{i+1}.{weight,bias}`` with OIHW weights. VGG19: the
+JAX tree is ``{"params": {"Conv_i": ...}}``, the port's keys torchvision's
+``features.{idx}.{weight,bias}``. Pure relayout: no value changes, so the
+round trips are exact.
 """
 
 from __future__ import annotations
@@ -55,3 +57,22 @@ def jax_from_state_dict(sd: dict) -> dict:
                 "bias": b.copy(),
             }
     return {"params": tree}
+
+
+def vgg_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX VGG19 params (``params/Conv_i/{kernel,bias}``, HWIO; nested or
+    flat keys) -> the port's VGG19Features state_dict (OIHW)."""
+    from waternet_tpu_torch.models.vgg import conv_indices
+
+    tree = _nested(params)
+    sd = {}
+    for i, idx in enumerate(conv_indices()):
+        conv = tree[f"Conv_{i}"]
+        kernel = np.asarray(conv["kernel"], dtype=np.float32)
+        sd[f"features.{idx}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))
+        )
+        sd[f"features.{idx}.bias"] = torch.from_numpy(
+            np.asarray(conv["bias"], dtype=np.float32).copy()
+        )
+    return sd

@@ -21,3 +21,13 @@ def ten2arr(ten: torch.Tensor) -> np.ndarray:
     numpy. The uint8 cast runs where the tensor lives, so a CUDA result
     crosses to the host at a quarter of the float bytes."""
     return (ten.detach().clamp(0.0, 1.0) * 255).to(torch.uint8).cpu().numpy()
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """Copy a host tensor to ``device`` without making the host wait for
+    the device: to CUDA through pinned memory, asynchronously (a copy from
+    pageable memory would wait for the stream's queued work)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
