@@ -9,10 +9,14 @@ Phases; any failure exits non-zero, and nothing below is caught:
 2. build every kernel from ``waternet_tpu_torch/csrc`` with nvcc (one
    process per source, in parallel, linked into one library);
 3. the CLAHE kernels against their plain PyTorch versions on the card,
-   bit for bit, at the inference shape (4 x 1080x1920) and an odd one
-   (1 x 723x1001), with their times, the plain versions' times, the
-   one-call PyTorch yardstick where there is one, and their bounds;
-4. CLAHE through the kernels against the plain CLAHE, bit for bit;
+   bit for bit, at the inference shape (4 x 1080x1920), an odd one
+   (1 x 723x1001), and the L planes of T1's and T2's first train batch
+   as their steps make them (8 x 256x256 from the dct8 cache, 32x32
+   tiles; 16 x 112x112 from the raw cache, 14x14 tiles), with their
+   times, the plain versions' times, the one-call PyTorch yardstick where
+   there is one, and their bounds;
+4. CLAHE through the kernels against the plain CLAHE, bit for bit, at
+   the same four shapes;
 5. the inference path, ``InferenceEngine(device_preprocess=True)`` on
    CUDA with the committed trained weights, answering R1 (4 x 1080x1920,
    batched 1080p video frames), R2 (1 x 723x1001) and R3 (2 x 251x333),
@@ -21,9 +25,9 @@ Phases; any failure exits non-zero, and nothing below is caught:
 6. the two kernels of the training slice against their plain versions,
    bit for bit: ``dct8_dequant_idct`` at NB = 49,152 (the T1 step's one
    launch: raw and ref of 8 x 256x256 decoded together), 24,576 (one side)
-   and an odd 1,989 (3 x 104x136); ``tile_histogram`` at 4 x 1080x1920
-   and 1 x 723x1001, where ``luts_from_hist(tile_histogram(l))`` must also
-   equal ``tile_lut(l)``; with the same timings as phase 3;
+   and an odd 1,989 (3 x 104x136); ``tile_histogram`` at the four L
+   planes of phase 3, where ``luts_from_hist(tile_histogram(l))`` must
+   also equal ``tile_lut(l)``; with the same timings as phase 3;
 7. training on the card from ``SyntheticPairs(seed=0)``, perceptual loss
    on, each epoch's launches read around it:
    T1 ``python -m waternet_tpu_torch.train`` as a subprocess, dct8 device
@@ -80,6 +84,8 @@ TIMING_REPS = 25
 T1 = dict(synthetic=64, val_size=8, epochs=2, batch=8, hw=256)
 T2 = dict(synthetic=64, val_size=8, epochs=2, batch=16, hw=112)
 T3 = dict(batch=4, hw=64)
+# The training batches the CLAHE kernels are also held at: (batch, side, codec).
+TRAIN_PLANES = {"T1": (T1["batch"], T1["hw"], "dct8"), "T2": (T2["batch"], T2["hw"], "raw")}
 WATERNET_MAC_PER_PX = 1_089_824
 VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
            512, 512, 512, 512, "M", 512, 512, 512, 512)
@@ -145,15 +151,40 @@ def kernel_line(name, tag, shape, r, card, **extra) -> None:
     print(json.dumps(line), flush=True)
 
 
-def new_kernels_phase(torch, dev, flush, card, rng) -> dict:
+def l_planes(torch, dev, rng) -> dict:
+    """The (N, H, W) uint8 L planes the CLAHE kernels are held at: the
+    inference shapes, from photo frames, and the first batch of T1 and T2
+    as their steps make it: ``SyntheticPairs(seed=SEED)`` cached under the
+    run's codec, decoded on the card, augmented with the first step's
+    draws, converted to LAB."""
+    from waternet_tpu_torch.data import codec
+    from waternet_tpu_torch.data.augment import augment_pair_batch
+    from waternet_tpu_torch.data.synthetic import SyntheticPairs
+    from waternet_tpu_torch.ops.color import rgb_to_lab_u8
+    from waternet_tpu_torch.training.trainer import step_generator
+    from waternet_tpu_torch.utils.synthetic import photo_frames
+
+    planes = {}
+    for tag, shape in KERNEL_SHAPES.items():
+        rgb = torch.from_numpy(photo_frames(rng, *shape)).to(dev)
+        planes[tag] = rgb_to_lab_u8(rgb)[..., 0].to(torch.uint8)
+    for tag, (n, hw, codec_name) in TRAIN_PLANES.items():
+        pairs = SyntheticPairs(n, hw, hw, seed=SEED)
+        raw = np.stack([pairs.load_pair(i)[0] for i in range(n)])
+        payload = {k: torch.from_numpy(v).to(dev) for k, v in codec.encode(codec_name, raw).items()}
+        rgb = codec.decode(codec_name, payload, hw, hw)
+        rgb, _ = augment_pair_batch(step_generator(SEED, 0, 0), rgb, rgb)
+        planes[tag] = rgb_to_lab_u8(rgb)[..., 0].to(torch.uint8)
+    return planes
+
+
+def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
     """Phase 6: dct8_dequant_idct and tile_histogram against their plain
     versions; returns the main-shape row of each."""
     from waternet_tpu_torch.data import codec
     from waternet_tpu_torch.data.synthetic import SyntheticPairs
     from waternet_tpu_torch.ops import kernels
     from waternet_tpu_torch.ops.clahe import clahe_inputs
-    from waternet_tpu_torch.ops.color import rgb_to_lab_u8
-    from waternet_tpu_torch.utils.synthetic import photo_frames
 
     summary = {}
     quant = torch.from_numpy(codec.DCT8_QUANT).to(dev)
@@ -187,9 +218,8 @@ def new_kernels_phase(torch, dev, flush, card, rng) -> dict:
             summary["dct8_dequant_idct"] = r
 
     ty, tx = 8, 8
-    for tag, (n, h, w) in KERNEL_SHAPES.items():
-        rgb = torch.from_numpy(photo_frames(rng, n, h, w)).to(dev)
-        lum = rgb_to_lab_u8(rgb)[..., 0].to(torch.uint8)
+    for tag, lum in planes.items():
+        n, h, w = lum.shape
         l_pad, clip, scale, _ = clahe_inputs(lum, tile_grid=(ty, tx))
         hp, wp = l_pad.shape[1:]
         got = kernels.tile_histogram(l_pad, (ty, tx))
@@ -400,7 +430,6 @@ def main() -> int:
     from waternet_tpu_torch.inference_engine import InferenceEngine
     from waternet_tpu_torch.ops import _build, kernels
     from waternet_tpu_torch.ops.clahe import clahe, clahe_inputs
-    from waternet_tpu_torch.ops.color import rgb_to_lab_u8
     from waternet_tpu_torch.utils.device import gpu_card_line, resolve_device
     from waternet_tpu_torch.utils.synthetic import photo_frames
 
@@ -432,9 +461,9 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     ty, tx = 8, 8
     summary = {}
-    for tag, (n, h, w) in KERNEL_SHAPES.items():
-        rgb = torch.from_numpy(photo_frames(rng, n, h, w)).to(dev)
-        lum = rgb_to_lab_u8(rgb)[..., 0].to(torch.uint8)
+    planes = l_planes(torch, dev, rng)
+    for tag, lum in planes.items():
+        n, h, w = lum.shape
         l_pad, clip, scale, g = clahe_inputs(lum, tile_grid=(ty, tx))
         hp, wp = l_pad.shape[1:]
         th, tw = g["tile"]
@@ -555,8 +584,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. The training slice's kernels against their plain versions.
-    summary.update(new_kernels_phase(torch, dev, flush, card, rng))
-    del flush
+    summary.update(new_kernels_phase(torch, dev, flush, card, planes))
+    del flush, planes
     torch.cuda.empty_cache()
 
     # 7. Training on the card: each run's launches are counted from 0.

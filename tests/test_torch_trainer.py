@@ -181,6 +181,26 @@ def test_optimizer_is_adam_with_the_staircase_schedule():
     np.testing.assert_allclose(lrs, [1e-3] * 3 + [1e-4] * 3 + [1e-5])
 
 
+def test_stamp_hook_sees_every_stage_and_changes_nothing():
+    """``stage_profile --train`` times the engine's own step through its
+    ``stamp`` hook: the hook sees each stage in order, and a stamped step
+    gives the same metrics and parameters, bit for bit, as a plain one."""
+    kw = dict(batch_size=2, im_height=16, im_width=16, precision="fp32", cache_codec="dct8")
+    ds = SyntheticPairs(2, 16, 16)
+    names, runs = [], []
+    for extra in ({}, {"stamp": names.append}):
+        engine = TrainingEngine(TrainConfig(**kw), device="cpu")
+        engine.cache_dataset(ds, np.arange(2))
+        step_fn, args = engine.cached_train_step()
+        m = step_fn(*args, torch.arange(2), trainer.step_generator(0, 0, 0), 2, **extra)
+        runs.append((m, engine.model.state_dict()))
+    assert names == ["gather_decode", "preprocess", "forward", "losses", "backward",
+                     "optimizer", "metrics"]
+    (m0, sd0), (m1, sd1) = runs
+    assert all(torch.equal(m0[k], m1[k]) for k in trainer.TRAIN_METRICS_NAMES)
+    assert all(torch.equal(sd0[k], sd1[k]) for k in sd0)
+
+
 def test_step_generator_depends_on_seed_epoch_and_batch():
     draws = {
         key: torch.rand(4, generator=trainer.step_generator(*key)).tolist()

@@ -25,6 +25,7 @@ live headroom.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, List, Optional
 
@@ -152,6 +153,22 @@ def _encode_dct8(u8: np.ndarray) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _device_tables(device: torch.device) -> Dict[str, torch.Tensor]:
+    """The decoders' constant tables on ``device``, copied once per device:
+    a copy from pageable host memory in the step would make the host wait
+    for all the work queued on the device."""
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return {
+        "ycbcr_inv": dev(_YCBCR_INV.T),
+        "quant": dev(DCT8_QUANT),
+        "idct_m": dev(DCT8_IDCT_MATRIX),
+    }
+
+
 def decode(codec: str, payload: Dict[str, torch.Tensor], height: int, width: int) -> torch.Tensor:
     """Gathered payload (batch first) -> (B, H, W, 3) uint8 pixels, on the
     payload's device."""
@@ -170,8 +187,7 @@ def _decode_yuv420(payload, height: int, width: int) -> torch.Tensor:
 
     y = payload["y"].to(torch.float32)
     ycc = torch.stack([y, up(payload["cb"]), up(payload["cr"])], dim=-1)
-    inv = torch.from_numpy(_YCBCR_INV.T.copy()).to(y.device)
-    rgb = ycc @ inv
+    rgb = ycc @ _device_tables(y.device)["ycbcr_inv"]
     return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
 
 
@@ -180,11 +196,9 @@ def _decode_dct8(payload, height: int, width: int) -> torch.Tensor:
 
     coef = payload["coef"]  # (B, nby, nbx, C, 16) int8
     b, nby, nbx, c, z2 = coef.shape
-    dev = coef.device
+    tables = _device_tables(coef.device)
     pix = dct8_dequant_idct(
-        coef.reshape(b * nby * nbx * c, z2).contiguous(),
-        torch.from_numpy(DCT8_QUANT).to(dev),
-        torch.from_numpy(DCT8_IDCT_MATRIX).to(dev),
+        coef.reshape(b * nby * nbx * c, z2).contiguous(), tables["quant"], tables["idct_m"]
     )
     img = pix.reshape(b, nby, nbx, c, 8, 8).permute(0, 1, 4, 2, 5, 3)
     img = img.reshape(b, nby * 8, nbx * 8, c)[:, :height, :width]

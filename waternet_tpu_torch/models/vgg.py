@@ -15,6 +15,7 @@ but training is then not reference-parity.
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 from pathlib import Path
@@ -65,10 +66,21 @@ class VGG19Features(nn.Module):
         return out.permute(0, 2, 3, 1).to(torch.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device: torch.device):
+    """(mean, std) on ``device``, copied once per device: a copy from host
+    memory in the step would make the host wait for the device's work.
+    Made outside inference mode, since autograd saves ``std``."""
+    with torch.inference_mode(False):
+        return (
+            torch.from_numpy(IMAGENET_MEAN).to(device),
+            torch.from_numpy(IMAGENET_STD).to(device),
+        )
+
+
 def imagenet_normalize(x: torch.Tensor) -> torch.Tensor:
     """Per-channel ImageNet normalization of [0, 1] NHWC images."""
-    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
-    std = torch.as_tensor(IMAGENET_STD, device=x.device)
+    mean, std = _imagenet_stats(x.device)
     return (x - mean) / std
 
 

@@ -7,10 +7,11 @@
 Inference: runs the stages of ``InferenceEngine(device_preprocess=True).
 enhance`` one after another, as the engine runs them, with CUDA events
 between stages. Weights are the committed trained fixture; frames are made
-from a seed. ``--train``: the stages of one cached train step of
-``TrainingEngine`` (gather and decode, preprocess, forward, losses,
-backward, optimizer, metrics), perceptual loss on, over ``SyntheticPairs``
-(seed 0) after a warm-up epoch. Either prints one JSON line: the median
+from a seed. ``--train``: one cached train step of ``TrainingEngine``,
+the engine's own, with a CUDA event at each of its stage hooks (gather
+and decode, preprocess, forward, losses, backward, optimizer, metrics),
+perceptual loss on, over ``SyntheticPairs`` (seed 0) after a warm-up
+epoch. Either prints one JSON line: the median
 device time of each stage, their sum, the host-clock time of the whole
 request or step, and, from ``torch.profiler``, the device's busy and idle
 share over one more and its ten costliest kernels. Needs CUDA.
@@ -28,12 +29,10 @@ import numpy as np
 import torch
 
 from waternet_tpu_torch.inference_engine import InferenceEngine
-from waternet_tpu_torch.ops.fused import fused_train_preprocess
 from waternet_tpu_torch.ops.clahe import clahe
 from waternet_tpu_torch.ops.color import lab_u8_to_rgb, rgb_to_lab_u8
 from waternet_tpu_torch.ops.gamma import gamma_correction
 from waternet_tpu_torch.ops.wb import white_balance
-from waternet_tpu_torch.training.losses import mse_255, perceptual_loss
 from waternet_tpu_torch.utils.device import gpu_card_line
 from waternet_tpu_torch.utils.synthetic import photo_frames
 from waternet_tpu_torch.utils.tensor import ten2arr
@@ -41,15 +40,21 @@ from waternet_tpu_torch.utils.tensor import ten2arr
 WEIGHTS = Path(__file__).resolve().parent.parent / "tests/fixtures/distill/teacher.npz"
 
 
-def _staged(engine, batch, events):
-    """One request through the engine's device-preprocess stages, recording
-    a CUDA event after each; returns the uint8 result."""
+def _event_stamp(events):
+    """A stage hook that records a CUDA event under the stage's name."""
 
     def stamp(name):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append((name, ev))
 
+    return stamp
+
+
+def _staged(engine, batch, events):
+    """One request through the engine's device-preprocess stages, recording
+    a CUDA event after each; returns the uint8 result."""
+    stamp = _event_stamp(events)
     stamp("start")
     rgb = torch.as_tensor(batch).to(engine.device)
     stamp("upload")
@@ -103,42 +108,6 @@ def _profile(fn) -> dict:
     }
 
 
-def _staged_train_step(engine, idx, gen, n_real, events):
-    """One cached train step through TrainingEngine's stages, recording a
-    CUDA event after each; returns the step's metrics."""
-
-    def stamp(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((name, ev))
-
-    stamp("start")
-    raw, ref = engine._gather_decode(engine._cache_enc, engine.config.cache_codec, idx)
-    stamp("gather_decode")
-    mask = engine._mask(raw.shape[0], n_real)
-    with torch.no_grad():
-        x, wbn, hen, gcn, refn = fused_train_preprocess(raw, ref, gen, engine.config.augment)
-    stamp("preprocess")
-    with engine._autocast():
-        out = engine.model(x, wbn, hen, gcn)
-    out = out.to(torch.float32)
-    stamp("forward")
-    mse = mse_255(out, refn, mask)
-    with engine._autocast():
-        perc = perceptual_loss(engine.vgg, out, refn, mask)
-    loss = engine.config.perceptual_weight * perc + mse
-    stamp("losses")
-    engine.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    stamp("backward")
-    engine.optimizer.step()
-    engine.scheduler.step()
-    stamp("optimizer")
-    m = engine._metrics(out.detach(), refn, {"mse": mse, "perceptual_loss": perc}, mask, loss)
-    stamp("metrics")
-    return m
-
-
 def train_main(args) -> None:
     from waternet_tpu_torch.data.synthetic import SyntheticPairs
     from waternet_tpu_torch.training.trainer import TrainConfig, TrainingEngine, step_generator
@@ -150,19 +119,21 @@ def train_main(args) -> None:
     engine.cache_dataset(SyntheticPairs(4 * n, h, w, seed=0), np.arange(4 * n))
     engine.train_epoch_cached(0)  # warm-up: cuDNN's algorithm search
     idx = torch.arange(n, device=engine.device)
+    step_fn, cache_args = engine.cached_train_step()
 
     stage_ms: dict[str, list[float]] = {}
     step = []
     for rep in range(args.reps):
         events = []
+        stamp = _event_stamp(events)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _staged_train_step(engine, idx, step_generator(0, 1, rep), n, events)
+        stamp("start")
+        step_fn(*cache_args, idx, step_generator(0, 1, rep), n, stamp=stamp)
         torch.cuda.synchronize()
         step.append((time.perf_counter() - t0) * 1e3)
         for (_, a), (name, b) in zip(events, events[1:]):
             stage_ms.setdefault(name, []).append(a.elapsed_time(b))
-    step_fn, cache_args = engine.cached_train_step()
     medians = {k: statistics.median(v) for k, v in stage_ms.items()}
     print(json.dumps({
         "train_step": [n, h, w], "precision": args.precision, "codec": args.codec,

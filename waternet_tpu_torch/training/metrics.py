@@ -24,18 +24,23 @@ import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
-def _gaussian_kernel_np(kernel_size: int, sigma: float) -> np.ndarray:
+def _gaussian_window(kernel_size: int, sigma: float, channels: int, device: torch.device):
+    """(C, 1, k, k) float32 depthwise gaussian window on ``device``, copied
+    once per device (a copy from host memory in the step would make the
+    host wait for the device's queued work). Made outside inference mode,
+    since autograd saves it when the metric is differentiated."""
     ax = np.arange(kernel_size, dtype=np.float64) - (kernel_size - 1) / 2.0
     g = np.exp(-0.5 * (ax / sigma) ** 2)
     g = g / g.sum()
-    return np.outer(g, g).astype(np.float32)
+    k2d = np.outer(g, g).astype(np.float32)
+    window = np.ascontiguousarray(np.broadcast_to(k2d, (channels, 1) + k2d.shape))
+    with torch.inference_mode(False):
+        return torch.from_numpy(window).to(device)
 
 
-def _depthwise_filter(x: torch.Tensor, k2d: np.ndarray) -> torch.Tensor:
+def _depthwise_filter(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     """Valid depthwise 2D filter of an NCHW tensor."""
-    c = x.shape[1]
-    kernel = torch.from_numpy(k2d).to(x.device)[None, None].expand(c, 1, *k2d.shape)
-    return F.conv2d(x, kernel.contiguous(), groups=c)
+    return F.conv2d(x, window, groups=x.shape[1])
 
 
 def masked_mean(per_image: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -65,14 +70,14 @@ def ssim_per_image(
     c1 = (k1 * dr) ** 2
     c2 = (k2 * dr) ** 2
 
-    k2d = _gaussian_kernel_np(kernel_size, sigma)
     x = preds.permute(0, 3, 1, 2)
     y = target.permute(0, 3, 1, 2)
-    mu_x = _depthwise_filter(x, k2d)
-    mu_y = _depthwise_filter(y, k2d)
-    mu_xx = _depthwise_filter(x * x, k2d)
-    mu_yy = _depthwise_filter(y * y, k2d)
-    mu_xy = _depthwise_filter(x * y, k2d)
+    window = _gaussian_window(kernel_size, sigma, x.shape[1], x.device)
+    mu_x = _depthwise_filter(x, window)
+    mu_y = _depthwise_filter(y, window)
+    mu_xx = _depthwise_filter(x * x, window)
+    mu_yy = _depthwise_filter(y * y, window)
+    mu_xy = _depthwise_filter(x * y, window)
 
     sigma_x = mu_xx - mu_x * mu_x
     sigma_y = mu_yy - mu_y * mu_y

@@ -18,6 +18,12 @@ parameters train: VGG19 is frozen and holds no optimizer state.
 bfloat16 while the parameters stay float32, as the JAX package's Flax
 modules with ``dtype=bf16`` do.
 
+The train step takes an optional ``stamp`` callable, called with each
+stage's name as the stage's work has been enqueued (gather_decode,
+preprocess, forward, losses, backward, optimizer, metrics);
+``stage_profile --train`` records a CUDA event there. By default it does
+nothing.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item rather than being ignored): host-fed epochs and the input pipeline,
 the precache tables (``precache_histeq`` with the raw codec,
@@ -115,6 +121,10 @@ def step_generator(seed: int, epoch: int, batch: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state) >> 1)
 
 
+def _no_stamp(stage: str) -> None:
+    """The steps' default ``stamp``: nothing."""
+
+
 def _waternet_state_dict(params) -> dict:
     if "cmg.conv1.weight" in params:
         return {k: torch.as_tensor(v) for k, v in params.items()}
@@ -173,18 +183,21 @@ class TrainingEngine:
             return contextlib.nullcontext()
         return torch.autocast(self.device.type, dtype=torch.bfloat16)
 
-    def _losses_and_out(self, x, wbn, hen, gcn, refn, mask):
+    def _losses_and_out(self, x, wbn, hen, gcn, refn, mask, stamp=_no_stamp):
         with self._autocast():
             out = self.model(x, wbn, hen, gcn)
         out = out.to(torch.float32)
+        stamp("forward")
         mse = mse_255(out, refn, mask)
         aux = {"mse": mse, "perceptual_loss": torch.zeros((), device=self.device)}
-        if self.config.perceptual_weight == 0.0:
-            return mse, out, aux
-        with self._autocast():
-            perc = perceptual_loss(self.vgg, out, refn, mask)
-        aux["perceptual_loss"] = perc
-        return self.config.perceptual_weight * perc + mse, out, aux
+        loss = mse
+        if self.config.perceptual_weight != 0.0:
+            with self._autocast():
+                perc = perceptual_loss(self.vgg, out, refn, mask)
+            aux["perceptual_loss"] = perc
+            loss = self.config.perceptual_weight * perc + mse
+        stamp("losses")
+        return loss, out, aux
 
     @torch.no_grad()
     def _metrics(self, out, refn, aux, mask, loss=None) -> dict:
@@ -201,7 +214,7 @@ class TrainingEngine:
     def _mask(self, n: int, n_real: int) -> torch.Tensor:
         return torch.arange(n, device=self.device) < n_real
 
-    def train_step(self, raw_u8, ref_u8, generator, n_real: int) -> dict:
+    def train_step(self, raw_u8, ref_u8, generator, n_real: int, stamp=_no_stamp) -> dict:
         """One optimizer step on a uint8 (N, H, W, 3) pair batch on the
         engine's device; returns the step's metrics as 0-d device tensors
         (nothing is read back)."""
@@ -210,12 +223,17 @@ class TrainingEngine:
             x, wbn, hen, gcn, refn = fused_train_preprocess(
                 raw_u8, ref_u8, generator, augment=self.config.augment
             )
-        loss, out, aux = self._losses_and_out(x, wbn, hen, gcn, refn, mask)
+        stamp("preprocess")
+        loss, out, aux = self._losses_and_out(x, wbn, hen, gcn, refn, mask, stamp)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        stamp("backward")
         self.optimizer.step()
         self.scheduler.step()
-        return self._metrics(out.detach(), refn, aux, mask, loss)
+        stamp("optimizer")
+        m = self._metrics(out.detach(), refn, aux, mask, loss)
+        stamp("metrics")
+        return m
 
     @torch.no_grad()
     def eval_step(self, raw_u8, ref_u8, n_real: int) -> dict:
@@ -300,9 +318,10 @@ class TrainingEngine:
             raise RuntimeError("call cache_dataset() before cached_train_step()")
         return self.train_step_cached_codec, (self._cache_enc,)
 
-    def train_step_cached_codec(self, enc, idx, generator, n_real):
+    def train_step_cached_codec(self, enc, idx, generator, n_real, stamp=_no_stamp):
         raw_u8, ref_u8 = self._gather_decode(enc, self.config.cache_codec, idx)
-        return self.train_step(raw_u8, ref_u8, generator, n_real)
+        stamp("gather_decode")
+        return self.train_step(raw_u8, ref_u8, generator, n_real, stamp)
 
     @staticmethod
     def _epoch_means(per_step: list, names) -> dict:
