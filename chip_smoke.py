@@ -8,26 +8,36 @@ Phases; any failure exits non-zero, and nothing below is caught:
 1. the card's name and power limit (nvidia-smi), and the TF32 switches;
 2. build every kernel from ``waternet_tpu_torch/csrc`` with nvcc (one
    process per source, in parallel, linked into one library);
-3. the CLAHE kernels against their plain PyTorch versions on the card,
-   bit for bit, at the inference shape (4 x 1080x1920), an odd one
-   (1 x 723x1001), and the L planes of T1's and T2's first train batch
-   as their steps make them (8 x 256x256 from the dct8 cache, 32x32
-   tiles; 16 x 112x112 from the raw cache, 14x14 tiles), with their
-   times, the plain versions' times, the one-call PyTorch yardstick where
-   there is one, and their bounds;
+3. the time of the smallest launch (a 4-byte fill), then the CLAHE
+   kernels against their plain PyTorch versions on the card, bit for bit,
+   at the inference shape (4 x 1080x1920, 16-byte loads, one CTA per
+   tile), an odd one (1 x 723x1001, padded 728x1008: 2-byte loads,
+   clusters of 4 CTAs per tile), a tiny one (2 x 37x53, padded 40x56:
+   1-byte loads), and the L planes of T1's and T2's first train batch as
+   their steps make them (8 x 256x256 from the dct8 cache, 32x32 tiles,
+   16-byte loads; 16 x 112x112 from the raw cache, 14x14 tiles, 2-byte
+   loads), with each tile kernel's launch plan (cluster size K, vector
+   width), their times, the plain versions' times, the one-call PyTorch
+   yardstick where there is one, and their bounds; ``tile_lut`` also
+   under every K in {1, 2, 4, 8} at the first two shapes, bit for bit,
+   with its time at each;
 4. CLAHE through the kernels against the plain CLAHE, bit for bit, at
-   the same four shapes;
+   the same five shapes;
 5. the inference path, ``InferenceEngine(device_preprocess=True)`` on
    CUDA with the committed trained weights, answering R1 (4 x 1080x1920,
    batched 1080p video frames), R2 (1 x 723x1001) and R3 (2 x 251x333),
    with the CLAHE kernels' launch counters read around that run; R3 again
    on the CPU port, which must agree within one uint8 level;
 6. the two kernels of the training slice against their plain versions,
-   bit for bit: ``dct8_dequant_idct`` at NB = 49,152 (the T1 step's one
-   launch: raw and ref of 8 x 256x256 decoded together), 24,576 (one side)
-   and an odd 1,989 (3 x 104x136); ``tile_histogram`` at the four L
-   planes of phase 3, where ``luts_from_hist(tile_histogram(l))`` must
-   also equal ``tile_lut(l)``; with the same timings as phase 3;
+   bit for bit: ``dct8_dequant_idct`` (f32 blocks) and ``dct8_decode_u8``
+   (the whole decode to cropped uint8 images, which must also equal the
+   f32 kernel followed by the eager-torch epilogue it replaced) at NB =
+   49,152 (the T1 step's one launch: raw and ref of 8 x 256x256 decoded
+   together), 24,576 (one side), an odd 1,989 (3 x 104x136) and a cropped
+   1,326 (2 x 100x130); ``tile_histogram`` at the five L planes of phase
+   3, where ``luts_from_hist(tile_histogram(l))`` must also equal
+   ``tile_lut(l)``; with the same timings as phase 3, and for the decode
+   also the replaced path's time;
 7. training on the card from ``SyntheticPairs(seed=0)``, perceptual loss
    on, each epoch's launches read around it:
    T1 ``python -m waternet_tpu_torch.train`` as a subprocess, dct8 device
@@ -76,10 +86,12 @@ REPLACES = {
 # 67 TFLOP/s float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-KERNEL_SHAPES = {"main": (4, 1080, 1920), "odd": (1, 723, 1001)}
+KERNEL_SHAPES = {"main": (4, 1080, 1920), "odd": (1, 723, 1001), "tiny": (2, 37, 53)}
 REQUESTS = {"R1": (4, 1080, 1920), "R2": (1, 723, 1001), "R3": (2, 251, 333)}
-# dct8 block-channel counts: the T1 step's launch, one side of it, an odd one.
-DCT8_SHAPES = {"main": (16, 256, 256), "half": (8, 256, 256), "odd": (3, 104, 136)}
+# dct8 block-channel counts: the T1 step's launch, one side of it, an odd
+# one, and one whose blocks the decode crops.
+DCT8_SHAPES = {"main": (16, 256, 256), "half": (8, 256, 256), "odd": (3, 104, 136),
+               "crop": (2, 100, 130)}
 TIMING_REPS = 25
 T1 = dict(synthetic=64, val_size=8, epochs=2, batch=8, hw=256)
 T2 = dict(synthetic=64, val_size=8, epochs=2, batch=16, hw=112)
@@ -189,11 +201,12 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
     summary = {}
     quant = torch.from_numpy(codec.DCT8_QUANT).to(dev)
     idct_m = torch.from_numpy(codec.DCT8_IDCT_MATRIX).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for tag, (n, h, w) in DCT8_SHAPES.items():
         pairs = SyntheticPairs(n, h, w, seed=SEED)
         imgs = np.stack([pairs.load_pair(i)[i % 2] for i in range(n)])
-        coef_np = codec.encode("dct8", imgs)["coef"].reshape(-1, 16)
-        coef = torch.from_numpy(coef_np).to(dev)
+        coef5 = torch.from_numpy(codec.encode("dct8", imgs)["coef"]).to(dev).contiguous()
+        coef = coef5.reshape(-1, 16)
         nb = coef.shape[0]
         got = kernels.dct8_dequant_idct(coef, quant, idct_m)
         want = kernels.dct8_dequant_idct_plain(coef, quant, idct_m)
@@ -212,9 +225,50 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
             "max_abs_err": (got - want).abs().max().item(),
         }
         lib_err = (torch.mm(coef.float() * quant, idct_m) - want).abs().max().item()
+        plan = {"ctas": kernels.dct8_ctas(-(-nb // 16), sms), "store_bytes": 16}
         kernel_line("dct8_dequant_idct", tag, {"nb": nb, "images": [n, h, w]}, r, card,
-                    library_max_abs_diff=lib_err)
+                    library_max_abs_diff=lib_err, plan=plan)
+
+        # The whole decode, fused, against its plain version and against the
+        # path it replaced: the f32 kernel, then the epilogue in eager torch.
+        shape4 = tuple(coef5.shape[:4])
+
+        def parent_path():
+            return kernels.dct8_blocks_to_u8(kernels.dct8_dequant_idct(coef, quant, idct_m),
+                                             shape4, h, w)
+
+        def library_path():
+            return kernels.dct8_blocks_to_u8(torch.mm(coef.float() * quant, idct_m), shape4, h, w)
+
+        got = kernels.dct8_decode_u8(coef5, quant, idct_m, h, w)
+        want = kernels.dct8_decode_u8_plain(coef5, quant, idct_m, h, w)
+        parent = parent_path()
+        torch.cuda.synchronize()
+        check(got.shape == (n, h, w, 3) and got.dtype == torch.uint8, f"dct8_decode_u8 {got.shape}")
+        check(torch.equal(got, want), f"dct8_decode_u8 != plain at {tag} NB={nb}")
+        check(torch.equal(got, parent), f"dct8_decode_u8 != the f32 kernel + epilogue at {tag}")
+        out_px = n * h * w * 3
+        nbytes = nb * 16 + 16 * 4 + 16 * 64 * 4 + out_px
+        b_ms, b_by = bound(nbytes, nb * (16 + 2 * 16 * 64) + 4 * out_px)
+        r = {
+            "ms": device_ms(torch, lambda: kernels.dct8_decode_u8(coef5, quant, idct_m, h, w), flush),
+            "plain_ms": device_ms(
+                torch, lambda: kernels.dct8_decode_u8_plain(coef5, quant, idct_m, h, w), flush
+            ),
+            "parent_path_ms": device_ms(torch, parent_path, flush),
+            # Yardstick: dequantize, one cuBLAS product, the same epilogue.
+            "library_ms": device_ms(torch, library_path, flush),
+            "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": (got.int() - want.int()).abs().max().item(),
+        }
+        lib_err = (library_path().int() - want.int()).abs().max().item()
+        nby, nbx = shape4[1:3]
+        plan = kernels.dct8_decode_plan(n, nby, nbx, 3, w, got.data_ptr(), sms)._asdict()
+        kernel_line("dct8_decode_u8", tag, {"nb": nb, "images": [n, h, w]}, r, card,
+                    parent_path_ms=r["parent_path_ms"], equals_parent_path=True,
+                    library_max_abs_diff=lib_err, plan=plan)
         if tag == "main":
+            # The main path's launch of dct8_dequant_idct is the fused decode.
             summary["dct8_dequant_idct"] = r
 
     ty, tx = 8, 8
@@ -238,8 +292,9 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
             "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
             "max_abs_err": (got - want).abs().max().item(),
         }
+        plan = kernels.tile_plan(n, hp, wp, ty, tx, l_pad.data_ptr(), sms)._asdict()
         kernel_line("tile_histogram", tag, {"n": n, "h": h, "w": w, "padded": [hp, wp]}, r, card,
-                    luts_equal_tile_lut=True)
+                    luts_equal_tile_lut=True, plan=plan)
         if tag == "main":
             summary["tile_histogram"] = r
     return summary
@@ -459,6 +514,11 @@ def main() -> int:
 
     # 3. The CLAHE kernels against their plain versions, on the card.
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # What this timing reads for the smallest kernel: one fill of 4 bytes.
+    one = torch.empty(1, dtype=torch.int32, device=dev)
+    print(json.dumps({"launch_floor_ms": device_ms(torch, one.zero_, flush), "card": card}),
+          flush=True)
     ty, tx = 8, 8
     summary = {}
     planes = l_planes(torch, dev, rng)
@@ -511,10 +571,26 @@ def main() -> int:
                 "max_abs_err": err_planes,
             },
         }
+        plans = {"tile_lut": kernels.tile_plan(n, hp, wp, ty, tx, l_pad.data_ptr(), sms)._asdict(),
+                 "clahe_lut_planes": None}
+        if tag in ("main", "odd"):
+            # tile_lut under each cluster size: the same bits, and the times
+            # the plan's choice of K rests on.
+            vec = plans["tile_lut"]["vec"]
+            sweep = {}
+            for k in (1, 2, 4, 8):
+                plan = kernels.TilePlan(k, vec, 256, n * ty * tx * k)
+                check(torch.equal(kernels.tile_lut(l_pad, (ty, tx), clip, scale, plan=plan), luts_p),
+                      f"tile_lut at K={k} != plain at {tag}")
+                sweep[k] = device_ms(
+                    torch, lambda: kernels.tile_lut(l_pad, (ty, tx), clip, scale, plan=plan), flush
+                )
+            print(json.dumps({"kernel": "tile_lut", "shape": tag, "vec": vec,
+                              "ms_by_cluster_size": sweep, "card": card}), flush=True)
         for name, r in rows.items():
             r["bound_ms"], r["bound_by"] = bound(r["bytes"])
             kernel_line(name, tag, {"n": n, "h": h, "w": w, "padded": [hp, wp], "tile": [th, tw]},
-                        r, card)
+                        r, card, plan=plans[name])
             if tag == "main":
                 summary[name] = r
         del luts_k, planes_k, planes_p
@@ -604,6 +680,7 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"parent_path_ms": r["parent_path_ms"]} if "parent_path_ms" in r else {}),
         })
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(card, flush=True)

@@ -81,8 +81,34 @@ def test_plain_dct8_rounds_one_op_at_a_time():
     assert got.numpy().tobytes() == acc.tobytes()
 
 
+def _old_dct8_decode(coef5, quant, idct_m, height, width):
+    """The dct8 decode as data/codec.py spelled it before the epilogue moved
+    into the kernel: plain f32 product, then relayout, crop and rounding in
+    eager torch."""
+    b, nby, nbx, c, z2 = coef5.shape
+    pix = kernels.dct8_dequant_idct_plain(coef5.reshape(b * nby * nbx * c, z2), quant, idct_m)
+    img = pix.reshape(b, nby, nbx, c, 8, 8).permute(0, 1, 4, 2, 5, 3)
+    img = img.reshape(b, nby * 8, nbx * 8, c)[:, :height, :width]
+    return torch.clamp(torch.round(img + 128.0), 0, 255).to(torch.uint8)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(2, 100, 130)], ids=lambda s: "x".join(map(str, s)))
+def test_dct8_decode_u8_plain_is_the_old_epilogue(shape):
+    """Bit for bit, including the crop of partial blocks (37x53, 100x130)."""
+    n, h, w = shape
+    coef5 = torch.from_numpy(codec.encode("dct8", _images(n, h, w))["coef"])
+    q, m = torch.from_numpy(codec.DCT8_QUANT), torch.from_numpy(codec.DCT8_IDCT_MATRIX)
+    want = _old_dct8_decode(coef5, q, m, h, w)
+    got = kernels.dct8_decode_u8_plain(coef5, q, m, h, w)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (n, h, w, 3)
+    assert torch.equal(got, want)
+    assert torch.equal(kernels.dct8_decode_u8(coef5, q, m, h, w), want)  # CPU: the plain version
+
+
 @pytest.mark.parametrize("name", ["raw", "yuv420", "dct8"])
-@pytest.mark.parametrize("shape", SHAPES + [(2, 256, 256)], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize(
+    "shape", SHAPES + [(2, 256, 256), (2, 100, 130)], ids=lambda s: "x".join(map(str, s))
+)
 def test_decode_matches_jax_within_one_level(name, shape):
     u8 = _images(*shape)
     want = jcodec.roundtrip(name, u8)

@@ -94,6 +94,11 @@ def test_cpu_tensors_route_to_plain_and_leave_counters():
         torch.zeros((3, 16), dtype=torch.int8), torch.ones(16), torch.ones((16, 64))
     )
     assert out.shape == (3, 64) and not out.any()
+    u8 = kernels.dct8_decode_u8(
+        torch.zeros((2, 2, 3, 3, 16), dtype=torch.int8), torch.ones(16), torch.ones((16, 64)),
+        13, 21,
+    )
+    assert u8.dtype == torch.uint8 and u8.shape == (2, 13, 21, 3) and bool((u8 == 128).all())
     assert kernels.LAUNCHES == {
         "tile_lut": 0, "clahe_lut_planes": 0, "tile_histogram": 0, "dct8_dequant_idct": 0,
     }
@@ -153,20 +158,85 @@ def test_grid_must_divide_the_padded_plane():
         kernels.tile_lut(torch.zeros((1, 15, 16), dtype=torch.uint8), (8, 8), 1, 1.0)
 
 
+# (n, hp, wp) padded planes under the 8x8 grid -> (cluster, vector width):
+# R1, the odd request, T1's and T2's planes, and 2x37x53 (padded 40x56).
+_PLANS = {
+    "R1": ((4, 1080, 1920), (1, 16)),
+    "odd": ((1, 728, 1008), (4, 2)),
+    "T1": ((8, 256, 256), (1, 16)),
+    "T2": ((16, 112, 112), (1, 2)),
+    "tiny": ((2, 40, 56), (1, 1)),
+}
+
+
+@pytest.mark.parametrize("tag", sorted(_PLANS))
+def test_tile_plan_at_the_held_shapes(tag):
+    (n, hp, wp), want = _PLANS[tag]
+    plan = kernels.tile_plan(n, hp, wp, 8, 8, 1 << 20, 132)
+    assert (plan.cluster, plan.vec) == want
+    th, tw = hp // 8, wp // 8
+    assert tw % plan.vec == 0 and wp % plan.vec == 0
+    assert plan.cluster in (1, 2, 4, 8) and plan.grid == n * 64 * plan.cluster
+    assert plan.grid % plan.cluster == 0 and plan.threads == 256
+    # Tiles are split only while the grid has fewer CTAs than SMs, and
+    # never below 2,048 pixels a CTA.
+    if plan.cluster > 1:
+        assert plan.grid // 2 < 132 and -(-th * tw // plan.cluster) >= 2048
+    # A card with 8 SMs fills with whole tiles: no split; one with 1,000
+    # splits the 1080p tiles too.
+    assert kernels.tile_plan(n, hp, wp, 8, 8, 1 << 20, 8).cluster == 1
+    if tag == "R1":
+        assert kernels.tile_plan(n, hp, wp, 8, 8, 1 << 20, 1000).cluster == 4
+
+
+@pytest.mark.parametrize("offset,vec", [(0, 16), (8, 8), (4, 4), (2, 2), (3, 1), (1, 1)])
+def test_tile_plan_follows_the_planes_address(offset, vec):
+    """A plane that starts off a 16-byte boundary takes the widest load its
+    address allows; every tile's column offset stays a multiple of it."""
+    plan = kernels.tile_plan(4, 1080, 1920, 8, 8, (1 << 20) + offset, 132)
+    assert plan.vec == vec and ((1 << 20) + offset) % plan.vec == 0
+    assert all((j * 240) % plan.vec == 0 for j in range(8))
+
+
+@pytest.mark.parametrize(
+    "shape,vec",
+    [((16, 256, 256), 16), ((8, 256, 256), 16), ((3, 104, 136), 8), ((2, 100, 130), 2),
+     ((2, 37, 53), 1)],
+)
+def test_dct8_decode_plan(shape, vec):
+    b, h, w = shape
+    nby, nbx = -(-h // 8), -(-w // 8)
+    plan = kernels.dct8_decode_plan(b, nby, nbx, 3, w, 1 << 20, 132)
+    assert plan.vec == vec and (w * 3) % plan.vec == 0
+    assert plan.pitch % 128 == 16 and nbx * 24 <= plan.pitch < nbx * 24 + 144
+    assert plan.ctas == min(b * nby, 132 * 2)
+    assert kernels.dct8_decode_plan(b, nby, nbx, 3, w, (1 << 20) + 1, 132).vec == 1
+    assert kernels.dct8_ctas(10_000, 132) == 264 and kernels.dct8_ctas(0, 132) == 1
+
+
 def test_kernel_source_and_build_flags():
     assert [p.name for p in _build.SOURCES] == ["clahe.cu", "codec.cu"]
     src = "\n".join(p.read_text() for p in _build.SOURCES)
     for name in ("clahe_tile_lut_kernel", "clahe_lut_planes_kernel",
                  "clahe_tile_histogram_kernel", "dct8_dequant_idct_kernel",
-                 "waternet_clahe_tile_lut", "waternet_clahe_lut_planes",
-                 "waternet_clahe_tile_histogram", "waternet_dct8_dequant_idct"):
+                 "dct8_decode_u8_kernel", "waternet_clahe_tile_lut",
+                 "waternet_clahe_lut_planes", "waternet_clahe_tile_histogram",
+                 "waternet_dct8_dequant_idct", "waternet_dct8_decode_u8"):
         assert name in src
-    # tile_lut and tile_histogram share their histogram phase.
-    assert src.count("tile_bin_count(l, hp, wp, ty, tx, tile)") == 2
-    # The dct8 kernel rounds each op as the plain version does: no FMA.
-    codec_src = (_build.SOURCES[1]).read_text()
+    clahe_src, codec_src = (p.read_text() for p in _build.SOURCES)
+    # tile_lut and tile_histogram share their histogram phase, under one
+    # cluster launch whose CTAs meet in distributed shared memory.
+    assert clahe_src.count("tile_bin_count<V>(l, hp, wp, ty, tx)") == 2
+    assert "cudaLaunchKernelEx" in clahe_src
+    assert "cudaLaunchAttributeClusterDimension" in clahe_src
+    assert "map_shared_rank" in clahe_src and "cluster.sync()" in clahe_src
+    # Both dct8 epilogues share one product, which rounds each op as the
+    # plain version does: no FMA.
+    assert codec_src.count("dequant_idct_quad(") == 3
     assert "__fmul_rn" in codec_src and "__fadd_rn" in codec_src
     assert "fmaf" not in codec_src and "__fmaf" not in codec_src
+    # The uint8 epilogue rounds half to even, as torch.round.
+    assert "rintf(__fadd_rn(acc, 128.0f))" in codec_src
     assert "rintf" in src and "roundf" not in src
     assert _build.ARCH == "sm_90a"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

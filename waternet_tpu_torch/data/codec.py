@@ -8,9 +8,9 @@ numpy and give byte-identical payloads; the device decoders are torch:
 * ``yuv420`` BT.601 full-range YCbCr with 2x2 box-mean chroma: 2x. Decode:
   nearest-neighbour chroma upsample, one 3x3 matrix per pixel.
 * ``dct8``   8x8 blockwise orthonormal DCT, the 4x4 low-frequency zone
-  kept, int8 under :data:`DCT8_QUANT`: 4x. Decode: the
-  ``dct8_dequant_idct`` kernel (:mod:`waternet_tpu_torch.ops.kernels`),
-  then the relayout to pixels and ``clip(round(x + 128))``.
+  kept, int8 under :data:`DCT8_QUANT`: 4x. Decode: one launch of the
+  ``dct8_decode_u8`` kernel (:mod:`waternet_tpu_torch.ops.kernels`):
+  dequantize, inverse DCT, relayout to pixels and ``clip(round(x + 128))``.
 
 Both lossy decoders emit uint8. The f32 pixel blocks differ from the JAX
 decode only by the summation order of XLA's matmul, so the uint8 may
@@ -192,17 +192,11 @@ def _decode_yuv420(payload, height: int, width: int) -> torch.Tensor:
 
 
 def _decode_dct8(payload, height: int, width: int) -> torch.Tensor:
-    from waternet_tpu_torch.ops.kernels import dct8_dequant_idct
+    from waternet_tpu_torch.ops.kernels import dct8_decode_u8
 
-    coef = payload["coef"]  # (B, nby, nbx, C, 16) int8
-    b, nby, nbx, c, z2 = coef.shape
+    coef = payload["coef"].contiguous()  # (B, nby, nbx, C, 16) int8
     tables = _device_tables(coef.device)
-    pix = dct8_dequant_idct(
-        coef.reshape(b * nby * nbx * c, z2).contiguous(), tables["quant"], tables["idct_m"]
-    )
-    img = pix.reshape(b, nby, nbx, c, 8, 8).permute(0, 1, 4, 2, 5, 3)
-    img = img.reshape(b, nby * 8, nbx * 8, c)[:, :height, :width]
-    return torch.clamp(torch.round(img + 128.0), 0, 255).to(torch.uint8)
+    return dct8_decode_u8(coef, tables["quant"], tables["idct_m"], height, width)
 
 
 # ---------------------------------------------------------------------------

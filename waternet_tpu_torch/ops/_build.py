@@ -115,12 +115,17 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     signatures = {
-        "waternet_clahe_tile_lut": [ptr, ptr, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr],
-        "waternet_clahe_tile_histogram": [ptr, ptr, i32, i32, i32, i32, i32, ptr],
+        "waternet_clahe_tile_lut": [
+            ptr, ptr, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, ptr,
+        ],
+        "waternet_clahe_tile_histogram": [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr],
         "waternet_clahe_lut_planes": [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
         ],
-        "waternet_dct8_dequant_idct": [ptr, ptr, ptr, ptr, i32, ptr],
+        "waternet_dct8_dequant_idct": [ptr, ptr, ptr, ptr, i32, i32, ptr],
+        "waternet_dct8_decode_u8": [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
+        ],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
