@@ -20,7 +20,12 @@ Phases; any failure exits non-zero, and nothing below is caught:
    width), their times, the plain versions' times, the one-call PyTorch
    yardstick where there is one, and their bounds; ``tile_lut`` also
    under every K in {1, 2, 4, 8} at the first two shapes, bit for bit,
-   with its time at each;
+   with its time at each; ``clahe_lut_blend`` (the lookup with CLAHE's
+   blend, rounding and crop fused, the main path's launch) against its
+   plain version and against the path it replaced (the f32 planes kernel,
+   then the eager blend), with both interpolation kernels' strip plans,
+   and at the inference shape its time on a constant and on a uniform
+   random plane (what the shared-memory gathers' bank conflicts cost);
 4. CLAHE through the kernels against the plain CLAHE, bit for bit, at
    the same five shapes;
 5. the inference path, ``InferenceEngine(device_preprocess=True)`` on
@@ -531,16 +536,30 @@ def main() -> int:
 
         luts_k = kernels.tile_lut(l_pad, (ty, tx), clip, scale)
         luts_p = kernels.tile_lut_plain(l_pad, (ty, tx), clip, scale)
+        wts = (g["ya"], g["xa"], h, w)
         planes_k = kernels.clahe_lut_planes(luts_p, l_pad, *idx)
         planes_p = kernels.clahe_lut_planes_plain(luts_p, l_pad, *idx)
+        blend_k = kernels.clahe_lut_blend(luts_p, l_pad, *idx, *wts)
+        blend_p = kernels.clahe_lut_blend_plain(luts_p, l_pad, *idx, *wts)
+
+        def parent_path():  # the parent's: the f32 planes kernel, then the eager blend
+            return kernels.blend_quadrants(*kernels.clahe_lut_planes(luts_p, l_pad, *idx)[..., :h, :w],
+                                           g["ya"], g["xa"])
+
+        blend_parent = parent_path()
         torch.cuda.synchronize()
         err_lut = (luts_k - luts_p).abs().max().item()
         err_planes = (planes_k - planes_p).abs().max().item()
+        err_blend = (blend_k - blend_p).abs().max().item()
         check(torch.equal(luts_k, luts_p), f"tile_lut != plain at {tag} {n}x{h}x{w}")
         check(
             torch.equal(planes_k, planes_p),
             f"clahe_lut_planes != plain at {tag} {n}x{h}x{w}",
         )
+        check(blend_k.shape == (n, h, w), f"clahe_lut_blend shape {tuple(blend_k.shape)}")
+        check(torch.equal(blend_k, blend_p), f"clahe_lut_blend != plain at {tag} {n}x{h}x{w}")
+        check(torch.equal(blend_k, blend_parent),
+              f"clahe_lut_blend != the planes kernel + eager blend at {tag}")
 
         # Yardstick: the four quadrant gathers as one PyTorch indexing call.
         img = torch.arange(n, device=dev)[None, :, None, None]
@@ -548,6 +567,9 @@ def main() -> int:
         xq = torch.stack([idx[2], idx[3], idx[2], idx[3]]).long()[:, None, None, :]
         v = l_pad.long()[None]
         check(torch.equal(luts_p[img, yq, xq, v], planes_p), "yardstick gather differs")
+
+        def library_blend():  # yardstick: the one-call gather, then the same eager blend
+            return kernels.blend_quadrants(*luts_p[img, yq, xq, v][..., :h, :w], g["ya"], g["xa"])
 
         lut_bytes = n * ty * tx * 256 * 4
         idx_bytes = 2 * (hp + wp) * 4
@@ -570,9 +592,43 @@ def main() -> int:
                 "bytes": lut_bytes + n * hp * wp + idx_bytes + 4 * n * hp * wp * 4,
                 "max_abs_err": err_planes,
             },
+            # Reads the kept pixels only; 14 float32 ops a kept pixel.
+            "clahe_lut_blend": {
+                "ms": device_ms(torch, lambda: kernels.clahe_lut_blend(luts_p, l_pad, *idx, *wts), flush),
+                "plain_ms": device_ms(
+                    torch, lambda: kernels.clahe_lut_blend_plain(luts_p, l_pad, *idx, *wts), flush
+                ),
+                "parent_path_ms": device_ms(torch, parent_path, flush),
+                "library_ms": device_ms(torch, library_blend, flush),
+                "bytes": lut_bytes + n * h * w + idx_bytes + (h + w) * 4 + n * h * w * 4,
+                "flops": 14 * n * h * w,
+                "max_abs_err": err_blend,
+            },
         }
-        plans = {"tile_lut": kernels.tile_plan(n, hp, wp, ty, tx, l_pad.data_ptr(), sms)._asdict(),
-                 "clahe_lut_planes": None}
+        plans = {"tile_lut": kernels.tile_plan(n, hp, wp, ty, tx, l_pad.data_ptr(), sms)._asdict()}
+        for name, rows_, cols_, out in (("clahe_lut_planes", hp, wp, planes_k),
+                                        ("clahe_lut_blend", h, w, blend_k)):
+            plan = kernels.lut_blend_plan(n, rows_, cols_, wp, tx, g["y"][0].cpu().numpy(),
+                                          g["y"][1].cpu().numpy(), l_pad.data_ptr(),
+                                          out.data_ptr(), sms)
+            plans[name] = {"strips": plan.grid[0], "ctas": plan.grid[0] * n,
+                           "rows_per_strip": [int(np.diff(plan.strips).min()),
+                                              int(np.diff(plan.strips).max())],
+                           "vec": plan.vec, "threads": plan.threads, "smem_bytes": plan.smem}
+        if tag == "main":
+            # What the shared-memory gathers' bank conflicts cost: the blend
+            # on the same shape when every lane reads one address (a constant
+            # plane: broadcasts), on the photo planes, and on uniform random
+            # levels (the most conflicts).
+            probe = {"photo": rows["clahe_lut_blend"]["ms"]}
+            gen = torch.Generator(dev).manual_seed(SEED)
+            uniform = torch.randint(0, 256, l_pad.shape, device=dev, dtype=torch.uint8, generator=gen)
+            for kind, plane in (("constant", torch.full_like(l_pad, 128)),
+                                ("uniform_random", uniform)):
+                probe[kind] = device_ms(
+                    torch, lambda: kernels.clahe_lut_blend(luts_p, plane, *idx, *wts), flush)
+            print(json.dumps({"kernel": "clahe_lut_blend", "shape": tag,
+                              "ms_by_plane_content": probe, "card": card}), flush=True)
         if tag in ("main", "odd"):
             # tile_lut under each cluster size: the same bits, and the times
             # the plan's choice of K rests on.
@@ -588,12 +644,17 @@ def main() -> int:
             print(json.dumps({"kernel": "tile_lut", "shape": tag, "vec": vec,
                               "ms_by_cluster_size": sweep, "card": card}), flush=True)
         for name, r in rows.items():
-            r["bound_ms"], r["bound_by"] = bound(r["bytes"])
+            r["bound_ms"], r["bound_by"] = bound(r["bytes"], r.get("flops", 0))
+            extra = {"parent_path_ms": r["parent_path_ms"], "equals_parent_path": True} \
+                if "parent_path_ms" in r else {}
             kernel_line(name, tag, {"n": n, "h": h, "w": w, "padded": [hp, wp], "tile": [th, tw]},
-                        r, card, plan=plans[name])
-            if tag == "main":
-                summary[name] = r
-        del luts_k, planes_k, planes_p
+                        r, card, plan=plans[name], **extra)
+        if tag == "main":
+            # The main path's launch of clahe_lut_planes is the fused blend.
+            summary["tile_lut"] = rows["tile_lut"]
+            summary["clahe_lut_planes"] = dict(rows["clahe_lut_blend"],
+                                               f32_planes_kernel=rows["clahe_lut_planes"])
+        del luts_k, planes_k, planes_p, blend_k, blend_p, blend_parent
 
         # 4. CLAHE through the kernels == the plain CLAHE.
         got = clahe(lum, use_kernels=True)
@@ -681,6 +742,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"parent_path_ms": r["parent_path_ms"]} if "parent_path_ms" in r else {}),
+            **({"f32_planes_kernel": {k: r["f32_planes_kernel"][k] for k in
+                                      ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}}
+               if "f32_planes_kernel" in r else {}),
         })
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(card, flush=True)

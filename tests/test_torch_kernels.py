@@ -88,6 +88,9 @@ def test_cpu_tensors_route_to_plain_and_leave_counters():
     luts = kernels.tile_lut(planes, (8, 8), 1, np.float32(255.0) / np.float32(4))
     y1, y2 = (torch.from_numpy(a) for a in kernels.tile_indices(16, 2, 8))
     kernels.clahe_lut_planes(luts, planes, y1, y2, y1, y2)
+    ya, xa = torch.zeros((13, 1)), torch.zeros((1, 11))
+    blend = kernels.clahe_lut_blend(luts, planes, y1, y2, y1, y2, ya, xa, 13, 11)
+    assert blend.shape == (1, 13, 11) and blend.dtype == torch.float32
     hist = kernels.tile_histogram(planes, (8, 8))
     assert hist.dtype == torch.int32 and hist.shape == (1, 8, 8, 256)
     out = kernels.dct8_dequant_idct(
@@ -227,6 +230,14 @@ def test_kernel_source_and_build_flags():
     # tile_lut and tile_histogram share their histogram phase, under one
     # cluster launch whose CTAs meet in distributed shared memory.
     assert clahe_src.count("tile_bin_count<V>(l, hp, wp, ty, tx)") == 2
+    # Both interpolation kernels share one lookup phase; the blend rounds
+    # each op once in the eager order (no FMA) and rounds half to even.
+    for name in ("clahe_lut_blend_kernel", "waternet_clahe_lut_blend"):
+        assert name in clahe_src
+    assert clahe_src.count("band_lookup<V>(luts, l, strips, y1, y2, x1, x2, hp, wp, ty, tx,") == 2
+    assert "__fsub_rn(1.0f, wy)" in clahe_src and "__fsub_rn(1.0f, wx[j])" in clahe_src
+    assert "__fmul_rn" in clahe_src and "__fadd_rn" in clahe_src
+    assert "fmaf" not in clahe_src and "rintf(b)" in clahe_src
     assert "cudaLaunchKernelEx" in clahe_src
     assert "cudaLaunchAttributeClusterDimension" in clahe_src
     assert "map_shared_rank" in clahe_src and "cluster.sync()" in clahe_src
@@ -242,3 +253,177 @@ def test_kernel_source_and_build_flags():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+def _blend_np(p11, p12, p21, p22, ya, xa):
+    """CLAHE's blend in numpy float32, one rounded op at a time, rounded
+    half to even and clipped."""
+    one = np.float32(1.0)
+    top = p11 * (one - xa) + p12 * xa
+    bot = p21 * (one - xa) + p22 * xa
+    res = top * (one - ya) + bot * ya
+    return np.clip(np.round(res), np.float32(0.0), np.float32(255.0))
+
+
+def _weights(n_pix, tile):
+    """frac(i * f32(1/tile) - 0.5), as cv2 (and ops/clahe.py)."""
+    c = np.arange(n_pix, dtype=np.float32) * (np.float32(1.0) / np.float32(tile)) - np.float32(0.5)
+    return c - np.floor(c)
+
+
+@pytest.mark.parametrize(
+    "hw,grid",
+    [
+        ((19, 23), (3, 4)),
+        ((33, 17), (5, 3)),
+        ((40, 56), (4, 7)),
+        ((64, 64), (8, 8)),
+    ],
+)
+def test_plain_clahe_lut_blend_matches_pallas_interpret_and_numpy_blend(hw, grid):
+    """The fused kernel's plain version against the JAX Pallas lookup (in
+    interpret mode) followed by the blend in numpy float32 op by op, on
+    random fractional f32 LUTs, cropped to ``hw``."""
+    rng = np.random.default_rng(7 * hw[0] + hw[1])
+    (h, w), (ty, tx) = hw, grid
+    hp, wp = -(-h // ty) * ty, -(-w // tx) * tx
+    th, tw = hp // ty, wp // tx
+    v = rng.integers(0, 256, size=(hp, wp)).astype(np.uint8)
+    luts = (rng.random((ty, tx, 256), dtype=np.float32) * np.float32(255.0)).astype(np.float32)
+    cell_h, cells_y = _cell_tile_indices(hp, th, ty)
+    cell_w, cells_x = _cell_tile_indices(wp, tw, tx)
+    planes = pk.clahe_lut_planes(
+        jnp.asarray(luts), jnp.asarray(v), cells_y, cells_x, cell_h, cell_w, interpret=True,
+    )
+    ya, xa = _weights(h, th)[:, None], _weights(w, tw)[None, :]
+    want = _blend_np(*(np.asarray(p)[:h, :w] for p in planes), ya, xa)
+    idx = [torch.from_numpy(a) for a in (*kernels.tile_indices(hp, th, ty),
+                                         *kernels.tile_indices(wp, tw, tx))]
+    got = kernels.clahe_lut_blend_plain(
+        torch.from_numpy(luts[None]), torch.from_numpy(v[None]), *idx,
+        torch.from_numpy(ya), torch.from_numpy(xa), h, w,
+    )
+    assert got.shape == (1, h, w) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    # The wrapper routes the CPU tensors to the plain version.
+    assert torch.equal(kernels.clahe_lut_blend(
+        torch.from_numpy(luts[None]), torch.from_numpy(v[None]), *idx,
+        torch.from_numpy(ya), torch.from_numpy(xa), h, w,
+    ), got)
+
+
+def test_plain_clahe_lut_blend_matches_pallas_on_a_cropped_odd_shape():
+    """Two 45x71 planes padded by ``clahe_inputs`` (to 48x72): the geometry
+    the wrapper gets on the main path, against the JAX lookup per image and
+    the numpy blend, cropped."""
+    from waternet_tpu_torch.ops.clahe import clahe_inputs
+
+    rng = np.random.default_rng(4571)
+    lum = torch.from_numpy(rng.integers(0, 256, size=(2, 45, 71)).astype(np.uint8))
+    l_pad, _, _, g = clahe_inputs(lum)
+    hp, wp = l_pad.shape[1:]
+    assert (hp, wp) == (48, 72)
+    th, tw = g["tile"]
+    luts = (rng.random((2, 8, 8, 256), dtype=np.float32) * np.float32(255.0)).astype(np.float32)
+    cell_h, cells_y = _cell_tile_indices(hp, th, 8)
+    cell_w, cells_x = _cell_tile_indices(wp, tw, 8)
+    got = kernels.clahe_lut_blend_plain(torch.from_numpy(luts), l_pad, *g["y"], *g["x"],
+                                        g["ya"], g["xa"], 45, 71)
+    for i in range(2):
+        planes = pk.clahe_lut_planes(jnp.asarray(luts[i]), jnp.asarray(l_pad[i].numpy()),
+                                     cells_y, cells_x, cell_h, cell_w, interpret=True)
+        want = _blend_np(*(np.asarray(p)[:45, :71] for p in planes),
+                         g["ya"].numpy(), g["xa"].numpy())
+        np.testing.assert_array_equal(got[i].numpy(), want)
+
+
+def test_blend_one_minus_weight_is_the_single_rounded_f32_difference():
+    """torch's ``1.0 - xa`` on a float32 tensor is numpy's float32
+    ``1 - xa`` (what the kernel's ``__fsub_rn(1.0f, xa)`` computes): one
+    rounding of the exact difference, at every weight the geometry makes
+    and at the weights nearest 0 and 1."""
+    ws = [_weights(n, t) for n, t in ((1080, 135), (723, 91), (256, 32), (112, 14), (53, 7))]
+    edge = np.array([0.0, np.nextafter(np.float32(0), np.float32(1)), np.float32(0.5),
+                     np.nextafter(np.float32(1), np.float32(0))], dtype=np.float32)
+    xa = np.concatenate([*ws, edge]).astype(np.float32)
+    got = (1.0 - torch.from_numpy(xa)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, np.float32(1.0) - xa)
+    np.testing.assert_array_equal(got, (1.0 - xa.astype(np.float64)).astype(np.float32))
+
+
+# (n, h, w, ty, tx): R1, the odd request, T1's and T2's planes, 2x37x53,
+# and 5x7 frames under the 8x8 grid (padded 8x8: 1-pixel tiles, every row
+# its own band).
+_BLEND_SHAPES = {
+    "R1": (4, 1080, 1920, 8, 8),
+    "odd": (1, 723, 1001, 8, 8),
+    "T1": (8, 256, 256, 8, 8),
+    "T2": (16, 112, 112, 8, 8),
+    "tiny": (2, 37, 53, 8, 8),
+    "th1": (2, 5, 7, 8, 8),
+}
+
+
+def _padded(h, w, ty, tx):
+    if h % ty == 0 and w % tx == 0:
+        return h, w
+    return h + ty - h % ty, w + tx - w % tx
+
+
+@pytest.mark.parametrize("kind", ["blend", "planes"])
+@pytest.mark.parametrize("tag", sorted(_BLEND_SHAPES))
+def test_lut_blend_plan_invariants(tag, kind):
+    n, h, w, ty, tx = _BLEND_SHAPES[tag]
+    hp, wp = _padded(h, w, ty, tx)
+    rows, cols = (h, w) if kind == "blend" else (hp, wp)
+    y1, y2 = kernels.tile_indices(hp, hp // ty, ty)
+    l_ptr, out_ptr = 1 << 20, 1 << 21
+    plan = kernels.lut_blend_plan(n, rows, cols, wp, tx, y1, y2, l_ptr, out_ptr, 132)
+    starts = np.asarray(plan.strips)
+    # The rows are covered exactly once, in order.
+    assert starts[0] == 0 and starts[-1] == rows and (np.diff(starts) > 0).all()
+    assert plan.grid == (len(starts) - 1, n) and plan.threads == 256
+    # Every strip's rows lie in one band of constant (y1, y2): the two tile
+    # rows the CTA stages are all it reads.
+    for lo, hi in zip(starts[:-1], starts[1:]):
+        assert (y1[lo:hi] == y1[lo]).all() and (y2[lo:hi] == y2[lo]).all()
+    # Two tile rows of LUTs: 16 KB at the 8x8 grid.
+    assert plan.smem == 2 * tx * 256 * 4 == 16384
+    # The vector width divides the row pitches and both addresses.
+    assert cols % plan.vec == 0 and wp % plan.vec == 0
+    assert plan.vec in (4, 2, 1) and l_ptr % plan.vec == 0 and out_ptr % (4 * plan.vec) == 0
+    # Strips are no longer than the plan's length and at most one row apart
+    # within a band.
+    per = max(-(-1024 // cols), n * rows // (16 * 132), 1)
+    assert np.diff(starts).max() <= per
+    band = [(y1[r], y2[r]) for r in starts[:-1]]
+    for b in set(band):
+        sizes = [hi - lo for lo, hi, bb in zip(starts[:-1], starts[1:], band) if bb == b]
+        assert max(sizes) - min(sizes) <= 1
+    if tag == "th1":
+        assert len(starts) - 1 == rows  # every row its own band
+    if tag == "T1":
+        assert plan.vec == 4 and plan.grid[0] * n == 512  # 4-row strips, ~4 CTAs per SM
+    if tag == "odd" and kind == "blend":
+        assert plan.vec == 1  # 1001-wide rows: scalar stores
+    if tag == "R1":
+        assert plan.vec == 4
+
+
+@pytest.mark.parametrize("l_off,out_off,vec", [(0, 0, 4), (4, 16, 4), (2, 0, 2), (0, 8, 2),
+                                               (4, 4, 1), (1, 0, 1)])
+def test_lut_blend_plan_follows_the_addresses(l_off, out_off, vec):
+    """At R1 the width follows the plane's address (V-byte loads) and the
+    output's (a float4 store for V = 4, float2 for V = 2)."""
+    y1, y2 = kernels.tile_indices(1080, 135, 8)
+    plan = kernels.lut_blend_plan(4, 1080, 1920, 1920, 8, y1, y2, (1 << 20) + l_off,
+                                  (1 << 20) + out_off, 132)
+    assert plan.vec == vec
+
+
+def test_band_strips_cuts_bands_evenly():
+    y1 = np.array([0] * 5 + [0] * 9 + [1] * 3, dtype=np.int32)
+    y2 = np.array([0] * 5 + [1] * 9 + [1] * 3, dtype=np.int32)
+    assert kernels.band_strips(y1, y2, 4) == (0, 2, 5, 8, 11, 14, 17)
+    assert kernels.band_strips(y1, y2, 100) == (0, 5, 14, 17)

@@ -157,6 +157,37 @@ def test_clahe_other_tile_grids_and_tiny_images_bitexact_vs_cv2(hw, grid):
     np.testing.assert_array_equal(got, np.stack([op.apply(l) for l in lum]).astype(np.float32))
 
 
+@pytest.mark.parametrize("use_kernels", [True, False], ids=["wrapper", "plain"])
+def test_clahe_interpolates_through_the_fused_blend_once(monkeypatch, use_kernels):
+    """clahe() makes one call of the fused lookup-and-blend (the wrapper, or
+    its plain version when asked), none of the four-plane wrapper, and
+    hands it the host-made weights; on a CPU tensor the wrapper's plain
+    version does the lookup and the eager blend."""
+    from waternet_tpu_torch.ops import kernels
+
+    calls = []
+    name = "clahe_lut_blend" if use_kernels else "clahe_lut_blend_plain"
+    real = getattr(kernels, name)
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    def refuse(*_):
+        raise AssertionError("the unfused path ran")
+
+    monkeypatch.setattr(kernels, name, spy)
+    monkeypatch.setattr(kernels, "clahe_lut_planes", refuse)
+    lum = photo(3, 2, 37, 53)[..., 0]
+    got = clahe(torch.from_numpy(lum), use_kernels=use_kernels)
+    assert len(calls) == 1 and got.shape == (2, 37, 53)
+    ya, xa, h, w = calls[0][-4:]
+    assert (h, w) == (37, 53) and ya.shape == (37, 1) and xa.shape == (1, 53)
+    op = cv2.createCLAHE(clipLimit=0.1, tileGridSize=(8, 8))
+    want = np.stack([op.apply(l) for l in lum]).astype(np.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_lab_u8_to_rgb_within_one_level(batch):
     lab = np.array(jax_rgb_to_lab(jnp.asarray(batch)))
     got = lab_u8_to_rgb(torch.from_numpy(lab)).numpy()

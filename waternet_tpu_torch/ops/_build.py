@@ -120,7 +120,11 @@ def load() -> ctypes.CDLL:
         ],
         "waternet_clahe_tile_histogram": [ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr],
         "waternet_clahe_lut_planes": [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
+            ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr,
+        ],
+        "waternet_clahe_lut_blend": [
+            ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+            i32, i32, i32, ptr,
         ],
         "waternet_dct8_dequant_idct": [ptr, ptr, ptr, ptr, i32, i32, ptr],
         "waternet_dct8_decode_u8": [

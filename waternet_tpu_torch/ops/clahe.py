@@ -12,12 +12,13 @@ JAX package's (waternet_tpu/ops/clahe.py:452-596):
    by ``tiles - size % tiles``.
 2. Per-tile LUTs (histogram, integer clip, redistribution, CDF, rounded
    scale): :func:`~waternet_tpu_torch.ops.kernels.tile_lut`.
-3. The four surrounding tile LUTs looked up at every pixel:
-   :func:`~waternet_tpu_torch.ops.kernels.clahe_lut_planes`, with per-row
+3. The four surrounding tile LUTs looked up at every pixel, with per-row
    and per-column tile indices from OpenCV's float32 reciprocal multiply,
-   computed on the host.
-4. The bilinear blend in plain torch (eager elementwise ops do not
-   contract across ops), rounded half to even.
+   computed on the host, and
+4. their bilinear blend, rounded half to even, clamped and cropped, fused
+   into the same kernel: :func:`~waternet_tpu_torch.ops.kernels.clahe_lut_blend`
+   (each op rounded once in the eager order, so the kernel gives the
+   plain version's bits).
 
 Only the gather strategy is carried over: the JAX package's one-hot
 matmul strategies and their knobs exist for the TPU's matrix unit.
@@ -121,17 +122,11 @@ def clahe(
     h, w = l_chan.shape[1:]
     l_pad, clip, scale, g = clahe_inputs(l_chan, clip_limit, tile_grid)
     if use_kernels:
-        tile_lut, lut_planes = kernels.tile_lut, kernels.clahe_lut_planes
+        tile_lut, lut_blend = kernels.tile_lut, kernels.clahe_lut_blend
     else:
-        tile_lut, lut_planes = kernels.tile_lut_plain, kernels.clahe_lut_planes_plain
+        tile_lut, lut_blend = kernels.tile_lut_plain, kernels.clahe_lut_blend_plain
     luts = tile_lut(l_pad, tile_grid, clip, scale)
-    p11, p12, p21, p22 = lut_planes(luts, l_pad, *g["y"], *g["x"])[..., :h, :w]
-
-    ya, xa = g["ya"], g["xa"]
-    res = (p11 * (1.0 - xa) + p12 * xa) * (1.0 - ya) + (
-        p21 * (1.0 - xa) + p22 * xa
-    ) * ya
-    return torch.clamp(torch.round(res), 0.0, 255.0)
+    return lut_blend(luts, l_pad, *g["y"], *g["x"], g["ya"], g["xa"], h, w)
 
 
 def histeq(rgb: torch.Tensor) -> torch.Tensor:

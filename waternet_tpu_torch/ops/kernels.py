@@ -13,14 +13,16 @@ wrapper             replaces (TPU kernel)                            bound by
 tile_lut            pallas_kernels.py:133 ``_lut_kernel`` (:201)     bytes
 tile_histogram      pallas_kernels.py:71 ``_hist_kernel`` (:106)     bytes
 clahe_lut_planes    pallas_kernels.py:229 ``_interp_kernel`` (:269)  bytes
+clahe_lut_blend     the same, with CLAHE's blend, rounding and crop  bytes
 dct8_dequant_idct   pallas_kernels.py:330 ``_dct8_kernel`` (:366)    bytes
 dct8_decode_u8      the same, with the decode's uint8 epilogue       operations
 ==================  ===============================================  ==========
 
-``dct8_decode_u8`` is the same TPU kernel with another epilogue, so its
-launches count under ``LAUNCHES["dct8_dequant_idct"]``. The launch plans
-(:func:`tile_plan`, :func:`dct8_ctas`, :func:`dct8_decode_plan`) are pure
-functions of the shapes, the card's SM count and the data's address.
+``clahe_lut_blend`` and ``dct8_decode_u8`` are TPU kernels with another
+epilogue, so their launches count under ``LAUNCHES["clahe_lut_planes"]``
+and ``LAUNCHES["dct8_dequant_idct"]``. The launch plans (:func:`tile_plan`,
+:func:`lut_blend_plan`, :func:`dct8_ctas`, :func:`dct8_decode_plan`) are
+pure functions of the shapes, the card's SM count and the data's address.
 
 The plain versions are the reference arithmetic (bincount, cumsum,
 advanced indexing, one rounded op at a time). The tests hold them against
@@ -30,6 +32,7 @@ them. Nothing on the main path calls them on a CUDA tensor.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -44,6 +47,10 @@ _CLUSTERS = (1, 2, 4, 8)  # CTAs per tile cluster (8 is the portable maximum)
 _CTA_MIN_PIXELS = 2048  # pixels a CTA of a tile cluster counts, at least
 _TILE_CTAS_PER_SM = 1  # a tile grid with fewer CTAs than this per SM is split
 _LUT_THREADS = 256  # one thread per bin
+_STRIP_THREADS = 256
+_STRIP_WIDTHS = (4, 2, 1)  # pixels a thread takes a step in the interpolation kernels
+_STRIP_MIN_PIXELS = 1024  # pixels an interpolation CTA takes, at least
+_STRIP_CTAS_PER_SM = 16  # interpolation CTAs per SM, at most, from shorter strips
 _DCT_THREADS = 256
 _DCT_CTAS_PER_SM = 2  # as many as fit: M in registers, ~120 a thread
 _DCT_TABLE_SMEM = 16 * 64 * 4 + 16 * 4  # M and quant, staged by every dct8 CTA
@@ -244,6 +251,122 @@ def tile_lut(l_pad: torch.Tensor, tile_grid, clip: int, scale, plan: TilePlan | 
 # ---------------------------------------------------------------------------
 
 
+class LutBlendPlan(NamedTuple):
+    """Launch plan of :func:`clahe_lut_planes` and :func:`clahe_lut_blend`:
+    one CTA of ``threads`` per (strip, image), ``grid`` = (strips, images);
+    strip i is rows ``strips[i]`` to ``strips[i + 1]``, all in one band of
+    constant row tile indices; each thread takes ``vec`` pixels a step;
+    ``smem`` bytes of LUTs are staged per CTA."""
+
+    strips: tuple
+    vec: int
+    threads: int
+    grid: tuple
+    smem: int
+
+
+def band_strips(y1: np.ndarray, y2: np.ndarray, rows_per_strip: int) -> tuple:
+    """Row starts (and the end) of strips of at most ``rows_per_strip``
+    rows that cover ``range(len(y1))`` in order, each inside one band of
+    constant ``(y1, y2)``; a band is cut into near-equal strips."""
+    rows = len(y1)
+    change = np.flatnonzero((np.diff(y1) != 0) | (np.diff(y2) != 0)) + 1
+    edges = [0, *change.tolist(), rows]
+    starts = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        k = -(-(hi - lo) // rows_per_strip)
+        starts.extend(lo + (hi - lo) * i // k for i in range(k))
+    return (*starts, rows)
+
+
+def lut_blend_plan(n: int, rows: int, cols: int, wp: int, tx: int, y1, y2, l_ptr: int,
+                   out_ptr: int, sms: int) -> LutBlendPlan:
+    """The plan of the interpolation kernels over ``rows`` x ``cols`` pixels
+    of (n, hp, wp) padded planes (the blend: the kept h x w; the planes:
+    all of hp x wp), with row tile indices ``y1``, ``y2`` (numpy, from
+    :func:`tile_indices`), on a card with ``sms`` SMs.
+
+    The vector width is the widest of 4, 2, 1 pixels that divides ``cols``
+    (the output's row pitch), ``wp`` (the plane's) and the plane's address,
+    with the output's address aligned to its float4 (float2) stores; a
+    warp's steps are consecutive, so 4 pixels a thread already make its
+    loads and stores whole lines. Strips hold at least
+    ``_STRIP_MIN_PIXELS`` pixels, are short enough for
+    ``_STRIP_CTAS_PER_SM`` CTAs per SM, and never cross a band, so a CTA
+    stages only the two tile rows of LUTs it reads (16 KB at the 8x8
+    grid): on the H100, 512 CTAs at T1's 8 x 256x256 (4-row strips),
+    about 2,200 at 4 x 1080x1920 (2-row strips; the staging comes from L2,
+    and more, shorter strips were faster there than 4 CTAs per SM)."""
+    vec = next(
+        v for v in _STRIP_WIDTHS
+        if cols % v == 0 and wp % v == 0 and l_ptr % v == 0 and out_ptr % (4 * v) == 0
+    )
+    per_strip = max(-(-_STRIP_MIN_PIXELS // cols), n * rows // (_STRIP_CTAS_PER_SM * sms), 1)
+    strips = band_strips(np.asarray(y1)[:rows], np.asarray(y2)[:rows], per_strip)
+    return LutBlendPlan(strips, vec, _STRIP_THREADS, (len(strips) - 1, n), 2 * tx * _BINS * 4)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_plan(n, rows, cols, hp, wp, ty, tx, l_align, out_align, sms) -> LutBlendPlan:
+    """:func:`lut_blend_plan` per shape, from the row tile indices CLAHE
+    makes (:func:`tile_indices`), so the wrapper reads nothing back from
+    the card. A row whose indices differ (another caller's) still gets
+    the right values: the kernel reads its LUTs from global memory."""
+    y1, y2 = tile_indices(hp, hp // ty, ty)
+    return lut_blend_plan(n, rows, cols, wp, tx, y1, y2, l_align, out_align, sms)
+
+
+@functools.lru_cache(maxsize=64)
+def _strip_table(strips: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(strips, dtype=torch.int32, device=device)
+
+
+def _check_interp(luts, l_pad, y1, y2, x1, x2):
+    """Shapes and dtypes of the interpolation kernels' common inputs;
+    returns (n, hp, wp, ty, tx)."""
+    if l_pad.ndim != 3 or luts.ndim != 4:
+        raise ValueError("expected luts (N, ty, tx, 256) and l_pad (N, hp, wp)")
+    n, hp, wp = l_pad.shape
+    ty, tx = luts.shape[1:3]
+    dev = l_pad.device
+    _check("luts", luts, torch.float32, (n, ty, tx, _BINS), dev)
+    _check("l_pad", l_pad, torch.uint8, (n, hp, wp), dev)
+    for name, t, size in (("y1", y1, hp), ("y2", y2, hp), ("x1", x1, wp), ("x2", x2, wp)):
+        _check(name, t, torch.int32, (size,), dev)
+    if hp % ty or wp % tx:
+        raise ValueError(f"padded plane {hp}x{wp} is not divisible by the tile grid {ty}x{tx}")
+    if 2 * tx * _BINS * 4 > _MAX_SMEM:
+        raise ValueError(f"two rows of {tx} tile LUTs exceed {_MAX_SMEM} B of shared memory")
+    for name, t in (("luts", luts), ("x1", x1), ("x2", x2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (read as 16-byte vectors)")
+    return n, hp, wp, ty, tx
+
+
+def _launch_interp(fn_name, luts, l_pad, out, rows, cols, rest) -> None:
+    """Plan, then launch the C function ``fn_name`` (``waternet_<kernel>``)
+    over ``rows`` x ``cols`` pixels, with the arguments ``rest`` after the
+    strip table; counts under ``LAUNCHES["clahe_lut_planes"]``."""
+    from waternet_tpu_torch.ops import _build
+
+    n, hp, wp = l_pad.shape
+    ty, tx = luts.shape[1:3]
+    dev = l_pad.device
+    plan = _cached_plan(n, rows, cols, hp, wp, ty, tx, l_pad.data_ptr() % 16,
+                        out.data_ptr() % 16, _sms(dev))
+    strips = _strip_table(plan.strips, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_build.load(), fn_name)(
+            luts.data_ptr(), l_pad.data_ptr(), strips.data_ptr(), plan.grid[0], *rest,
+            plan.vec, stream,
+        )
+    if err:
+        raise RuntimeError(f"{fn_name.removeprefix('waternet_')}_kernel launch failed: "
+                           f"cudaError {err}")
+    LAUNCHES["clahe_lut_planes"] += 1
+
+
 def clahe_lut_planes_plain(luts, l_pad, y1, y2, x1, x2) -> torch.Tensor:
     """Plain version of :func:`clahe_lut_planes`: advanced indexing."""
     n = l_pad.shape[0]
@@ -267,40 +390,68 @@ def clahe_lut_planes(luts, l_pad, y1, y2, x1, x2) -> torch.Tensor:
             in range by construction), on the device of ``l_pad``.
     Returns:
         (4, N, hp, wp) float32: quadrants 11, 12, 21, 22, exact LUT values.
+
+    CUDA: one CTA per (strip, image) under :func:`lut_blend_plan`, staging
+    the two tile rows of LUTs its band reads (csrc/clahe.cu).
     """
     if not _route(l_pad):
         return clahe_lut_planes_plain(luts, l_pad, y1, y2, x1, x2)
-    if l_pad.ndim != 3 or luts.ndim != 4:
-        raise ValueError("expected luts (N, ty, tx, 256) and l_pad (N, hp, wp)")
-    n, hp, wp = l_pad.shape
-    ty, tx = luts.shape[1:3]
-    dev = l_pad.device
-    _check("luts", luts, torch.float32, (n, ty, tx, _BINS), dev)
-    _check("l_pad", l_pad, torch.uint8, (n, hp, wp), dev)
-    for name, t, size in (("y1", y1, hp), ("y2", y2, hp), ("x1", x1, wp), ("x2", x2, wp)):
-        _check(name, t, torch.int32, (size,), dev)
-    smem = ty * tx * _BINS * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(f"{ty}x{tx} tile LUTs need {smem} B of shared memory")
-    if luts.data_ptr() % 16:
-        raise ValueError("luts must be 16-byte aligned (staged as float4)")
-    from waternet_tpu_torch.ops import _build
-
-    lib = _build.load()
-    out = torch.empty((4, n, hp, wp), dtype=torch.float32, device=dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # About three resident CTAs per SM (64 KB of LUTs each) in one wave.
-    rows_per_block = max(1, -(-n * hp // (3 * sms)))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.waternet_clahe_lut_planes(
-            luts.data_ptr(), l_pad.data_ptr(), y1.data_ptr(), y2.data_ptr(),
-            x1.data_ptr(), x2.data_ptr(), out.data_ptr(), n, hp, wp, ty, tx,
-            rows_per_block, stream,
+    n, hp, wp, ty, tx = _check_interp(luts, l_pad, y1, y2, x1, x2)
+    out = torch.empty((4, n, hp, wp), dtype=torch.float32, device=l_pad.device)
+    if out.numel():
+        _launch_interp(
+            "waternet_clahe_lut_planes", luts, l_pad, out, hp, wp,
+            (y1.data_ptr(), y2.data_ptr(), x1.data_ptr(), x2.data_ptr(), out.data_ptr(),
+             n, hp, wp, ty, tx),
         )
-    if err:
-        raise RuntimeError(f"clahe_lut_planes_kernel launch failed: cudaError {err}")
-    LAUNCHES["clahe_lut_planes"] += 1
+    return out
+
+
+def blend_quadrants(p11, p12, p21, p22, ya, xa) -> torch.Tensor:
+    """CLAHE's bilinear blend of the four lookups, one rounded eager op at a
+    time, then rounded half to even and clamped to [0, 255]."""
+    res = (p11 * (1.0 - xa) + p12 * xa) * (1.0 - ya) + (
+        p21 * (1.0 - xa) + p22 * xa
+    ) * ya
+    return torch.clamp(torch.round(res), 0.0, 255.0)
+
+
+def clahe_lut_blend_plain(luts, l_pad, y1, y2, x1, x2, ya, xa, h: int, w: int) -> torch.Tensor:
+    """Plain version of :func:`clahe_lut_blend`: the plain lookup, cropped,
+    then :func:`blend_quadrants`."""
+    p11, p12, p21, p22 = clahe_lut_planes_plain(luts, l_pad, y1, y2, x1, x2)[..., :h, :w]
+    return blend_quadrants(p11, p12, p21, p22, ya, xa)
+
+
+def clahe_lut_blend(luts, l_pad, y1, y2, x1, x2, ya, xa, h: int, w: int) -> torch.Tensor:
+    """CLAHE's interpolation: the four-quadrant lookup of
+    :func:`clahe_lut_planes` and the bilinear blend of
+    :func:`blend_quadrants`, cropped to the kept ``h x w``.
+
+    Args: as :func:`clahe_lut_planes`, and ``ya`` (h, 1), ``xa`` (1, w)
+    float32 blend weights (``frac(i * f32(1/tile) - 0.5)``, host-made).
+    Returns (N, h, w) float32 holding exact uint8 values.
+
+    CUDA: one launch, the lookup phase of :func:`clahe_lut_planes` with the
+    blend fused, each op rounded once in the eager order, so the result is
+    the plain version's bits (csrc/clahe.cu). It counts under
+    ``LAUNCHES["clahe_lut_planes"]``: one TPU kernel, two epilogues."""
+    if not _route(l_pad):
+        return clahe_lut_blend_plain(luts, l_pad, y1, y2, x1, x2, ya, xa, h, w)
+    n, hp, wp, ty, tx = _check_interp(luts, l_pad, y1, y2, x1, x2)
+    if not (0 < h <= hp and 0 < w <= wp):
+        raise ValueError(f"crop {h}x{w} outside the padded {hp}x{wp} plane")
+    _check("ya", ya, torch.float32, (h, 1), l_pad.device)
+    _check("xa", xa, torch.float32, (1, w), l_pad.device)
+    if xa.data_ptr() % 16:
+        raise ValueError("xa must be 16-byte aligned (read as 16-byte vectors)")
+    out = torch.empty((n, h, w), dtype=torch.float32, device=l_pad.device)
+    if out.numel():
+        _launch_interp(
+            "waternet_clahe_lut_blend", luts, l_pad, out, h, w,
+            (y1.data_ptr(), y2.data_ptr(), x1.data_ptr(), x2.data_ptr(), ya.data_ptr(),
+             xa.data_ptr(), out.data_ptr(), n, hp, wp, ty, tx, h, w),
+        )
     return out
 
 
