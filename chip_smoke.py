@@ -51,7 +51,26 @@ Phases; any failure exits non-zero, and nothing below is caught:
    CLAHE in the step, 16 x 112x112, 64 pairs, 2 epochs (the first holds
    the first-call setup: cuDNN plans, lazy kernel loading), fp32; T3 one dct8
    train step at 4 x 64x64, fp32, no augmentation, on the card and on the
-   CPU port from the same parameters and batch.
+   CPU port from the same parameters and batch;
+8. T4, host-fed training at the JAX CLI's default config (16 x 112x112,
+   bf16, perceptual on, device preprocessing) through ``python -m
+   waternet_tpu_torch.train``: 272 synthetic pairs (16 train steps and one
+   val step an epoch), 2 epochs with ``--workers 2``, then with
+   ``--workers 0``, then the cached raw path at the same size and
+   precision as the same-call yardstick; per warm epoch images/s, step
+   ms, the pipeline's stall pct, per-stage ms and transfer bytes (two
+   uint8 tensors a batch, 1,204,224 bytes), peak memory and launches
+   (one ``tile_lut`` and one ``clahe_lut_planes`` per train and val
+   step, none of the other two). Then, on ``TrainingEngine`` directly at
+   fp32 with cuDNN's deterministic algorithms, 4 steps of 16 x 112x112
+   host-fed with 2 and 0 workers against the cached raw path: the
+   network's five input views of every step and the step's metrics, bit
+   for bit. Then 2 ``--host-preprocess`` epochs (five float32 views,
+   12,042,240 bytes a batch; no kernel launches: cv2 runs CLAHE on the
+   host), and a UIEB-layout tree written with cv2 at 128x160: one epoch
+   trained from ``--data-root`` (resized to 112x112 on load) and ``python
+   -m waternet_tpu_torch.score`` in its paired and no-reference modes on
+   it, with finite metrics.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card line and
 the ``{"ok": true, "device": ...}`` result. Inputs are made with numpy
@@ -101,6 +120,11 @@ TIMING_REPS = 25
 T1 = dict(synthetic=64, val_size=8, epochs=2, batch=8, hw=256)
 T2 = dict(synthetic=64, val_size=8, epochs=2, batch=16, hw=112)
 T3 = dict(batch=4, hw=64)
+T4 = dict(synthetic=272, val_size=16, epochs=2, batch=16, hw=112, precision="bf16")
+T4_EXACT = dict(pairs=64, batch=16, hw=112)  # 4 steps
+T4_UIEB = dict(pairs=48, val_size=16, h=128, w=160)  # 2 train steps, 1 val step
+# Launches per train or val step on the device-preprocess path.
+CLAHE_ONLY = {"tile_lut": 1, "clahe_lut_planes": 1, "tile_histogram": 0, "dct8_dequant_idct": 0}
 # The training batches the CLAHE kernels are also held at: (batch, side, codec).
 TRAIN_PLANES = {"T1": (T1["batch"], T1["hw"], "dct8"), "T2": (T2["batch"], T2["hw"], "raw")}
 WATERNET_MAC_PER_PX = 1_089_824
@@ -305,49 +329,59 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
     return summary
 
 
+def train_cli(tag: str, args: list):
+    """``python -m waternet_tpu_torch.train`` on the card in a fresh run
+    root; -> (its epoch_stats lines, its config.json, stdout)."""
+    with tempfile.TemporaryDirectory() as root:
+        cmd = [sys.executable, "-m", "waternet_tpu_torch.train", "--device", "cuda",
+               "--seed", str(SEED), "--train-root", root, *args]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"{tag} CLI failed:\n{proc.stdout}\n{proc.stderr}")
+        run = Path(root) / "0"
+        for name in ("last.npz", "metrics-train.csv", "metrics-val.csv", "summary.json", "config.json"):
+            check((run / name).is_file(), f"{tag}: {name} missing")
+        config = json.loads((run / "config.json").read_text())
+    stats = [json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()
+             if ln.startswith("epoch_stats ")]
+    for s in stats:
+        for k, v in list(s["train"].items()) + list(s["val"].items()):
+            check(math.isfinite(v), f"{tag} epoch {s['epoch']}: {k} = {v}")
+    print(json.dumps({"run": tag, "cli_wall_s": wall}), flush=True)
+    return stats, config, proc.stdout
+
+
+def check_launches(tag: str, s: dict, want: dict, totals: dict):
+    """``want``: part ("train", "val") -> (launches per step, steps). An
+    epoch's launches must be their product; adds them to ``totals``."""
+    for part, (per_step, n) in want.items():
+        w = {k: v * n for k, v in per_step.items()}
+        check(s["launches"][part] == w, f"{tag} epoch {s['epoch']}: {part} launches {s['launches'][part]}, want {w}")
+        for k, v in s["launches"][part].items():
+            totals[k] = totals.get(k, 0) + v
+
+
 def run_cli_training(torch, card, precision: str) -> dict:
     """T1 through ``python -m waternet_tpu_torch.train``; returns the
     launches of all epochs, checked per epoch."""
     t = T1
-    with tempfile.TemporaryDirectory() as root:
-        cmd = [
-            sys.executable, "-m", "waternet_tpu_torch.train", "--device", "cuda",
-            "--synthetic", str(t["synthetic"]), "--val-size", str(t["val_size"]),
-            "--epochs", str(t["epochs"]), "--batch-size", str(t["batch"]),
-            "--height", str(t["hw"]), "--width", str(t["hw"]), "--precision", precision,
-            "--device-cache", "--cache-codec", "dct8", "--seed", str(SEED), "--train-root", root,
-        ]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        check(proc.returncode == 0, f"T1 {precision} CLI failed:\n{proc.stdout}\n{proc.stderr}")
-        run = Path(root) / "0"
-        for name in ("last.npz", "metrics-train.csv", "metrics-val.csv", "summary.json", "config.json"):
-            check((run / name).is_file(), f"T1 {precision}: {name} missing")
-        config = json.loads((run / "config.json").read_text())
+    stats, config, stdout = train_cli(f"T1 {precision}", [
+        "--synthetic", str(t["synthetic"]), "--val-size", str(t["val_size"]),
+        "--epochs", str(t["epochs"]), "--batch-size", str(t["batch"]),
+        "--height", str(t["hw"]), "--width", str(t["hw"]), "--precision", precision,
+        "--device-cache", "--cache-codec", "dct8",
+    ])
     check(config["cache_codec"] == "dct8", f"T1 {precision}: config {config}")
-    banner = [ln for ln in proc.stdout.splitlines() if ln.startswith("Device cache:")]
+    banner = [ln for ln in stdout.splitlines() if ln.startswith("Device cache:")]
     check(banner, "T1: no Device cache banner")
-    stats = [json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()
-             if ln.startswith("epoch_stats ")]
     check(len(stats) == t["epochs"], f"T1 {precision}: {len(stats)} epoch lines")
     totals = {}
     steps = stats[0]["steps"]
     val_steps = -(-t["val_size"] // t["batch"])
     for s in stats:
-        for k, v in list(s["train"].items()) + list(s["val"].items()):
-            check(math.isfinite(v), f"T1 {precision} epoch {s['epoch']}: {k} = {v}")
-        want_train = {"dct8_dequant_idct": steps, "tile_lut": steps, "clahe_lut_planes": steps,
-                      "tile_histogram": 0}
-        want_val = {"dct8_dequant_idct": 0, "tile_lut": val_steps, "clahe_lut_planes": val_steps,
-                    "tile_histogram": 0}
-        check(s["launches"]["train"] == want_train,
-              f"T1 {precision}: train launches {s['launches']['train']}, want {want_train}")
-        check(s["launches"]["val"] == want_val,
-              f"T1 {precision}: val launches {s['launches']['val']}, want {want_val}")
-        for part in ("train", "val"):
-            for k, v in s["launches"][part].items():
-                totals[k] = totals.get(k, 0) + v
+        check_launches(f"T1 {precision}", s, {"train": (dict(CLAHE_ONLY, dct8_dequant_idct=1), steps),
+                                             "val": (CLAHE_ONLY, val_steps)}, totals)
         flops = step_flops(t["batch"], t["hw"], t["hw"])
         print(json.dumps({
             "run": f"T1 {precision}", "epoch": s["epoch"],
@@ -357,7 +391,6 @@ def run_cli_training(torch, card, precision: str) -> dict:
             "peak_mem_bytes": s["peak_mem_bytes"], "train": s["train"], "val": s["val"],
             "launches": s["launches"], "banner": banner[0], "card": card,
         }), flush=True)
-    print(json.dumps({"run": f"T1 {precision}", "cli_wall_s": wall}), flush=True)
     return totals
 
 
@@ -478,6 +511,198 @@ def run_t3(torch, dev, card) -> None:
     check(upd_max <= 2 * lr * (1 + 1e-3), f"T3: an update differs by {upd_max} > 2 lr")
     check(upd_covered_max <= lr / 1000,
           f"T3: a sign-certain update differs by {upd_covered_max} > lr/1000")
+
+
+def t4_args(epochs: int, workers: int, *extra) -> list:
+    t = T4
+    return ["--synthetic", str(t["synthetic"]), "--val-size", str(t["val_size"]),
+            "--epochs", str(epochs), "--batch-size", str(t["batch"]), "--height", str(t["hw"]),
+            "--width", str(t["hw"]), "--precision", t["precision"], "--workers", str(workers), *extra]
+
+
+def t4_line(tag: str, s: dict, card: str, **extra) -> None:
+    """One epoch of a T4 run: throughput, the pipeline's stalls, per-stage
+    ms and transfer bytes (train and val), peak memory and launches."""
+    pipe = {k: s[k] for k in s if k.startswith("pipeline_")}
+    print(json.dumps({
+        "run": tag, "epoch": s["epoch"], "train_images_per_s": s["train_images_per_s"],
+        "step_ms": s["step_ms"], "train_s": s["train_s"], "val_s": s["val_s"],
+        "pipeline": pipe, "val_pipeline": s["val_pipeline"],
+        "peak_mem_bytes": s["peak_mem_bytes"], "launches": s["launches"],
+        "train": s["train"], "val": s["val"], "card": card, **extra,
+    }), flush=True)
+
+
+def write_uieb_tree(root: Path, n: int, h: int, w: int) -> None:
+    """``SyntheticPairs(seed=SEED)`` written with cv2 as a UIEB-layout tree
+    (``raw-890/``, ``reference-890/``) of n PNG pairs at h x w."""
+    import cv2
+
+    from waternet_tpu_torch.data.synthetic import SyntheticPairs
+
+    pairs = SyntheticPairs(n, h, w, seed=SEED)
+    for sub in ("raw-890", "reference-890"):
+        (root / sub).mkdir(parents=True)
+    for i in range(n):
+        for sub, img in zip(("raw-890", "reference-890"), pairs.load_pair(i)):
+            check(cv2.imwrite(str(root / sub / f"{i:04d}.png"), cv2.cvtColor(img, cv2.COLOR_RGB2BGR)),
+                  f"cv2 could not write {sub}/{i:04d}.png")
+
+
+def run_score(tag: str, args: list) -> dict:
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "metrics.json"
+        cmd = [sys.executable, "-m", "waternet_tpu_torch.score", "--device", "cuda",
+               "--weights", WEIGHTS, "--json-out", str(out), *args]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"{tag} failed:\n{proc.stdout}\n{proc.stderr}")
+        metrics = json.loads(out.read_text())
+    check(all(math.isfinite(v) for v in metrics.values()), f"{tag}: {metrics}")
+    print(json.dumps({"run": tag, "metrics": metrics, "cli_wall_s": wall}), flush=True)
+    return metrics
+
+
+def run_t4(card) -> dict:
+    """T4: host-fed training through the CLI, its cached yardstick, the
+    host-preprocess epoch and the UIEB tree; returns the launches of the
+    host-fed runs, checked per epoch."""
+    t = T4
+    steps = (t["synthetic"] - t["val_size"]) // t["batch"]
+    val_steps = t["val_size"] // t["batch"]
+    device_pre = {"train": (CLAHE_ONLY, steps), "val": (CLAHE_ONLY, val_steps)}
+    u8_bytes = 2 * t["batch"] * t["hw"] * t["hw"] * 3
+    totals, warm = {}, {}
+    for workers in (2, 0):
+        tag = f"T4 workers={workers}"
+        stats, config, _ = train_cli(tag, t4_args(t["epochs"], workers))
+        check(len(stats) == t["epochs"] and config["device_preprocess"], f"{tag}: {config}")
+        for s in stats:
+            check(s["steps"] == steps, f"{tag}: {s['steps']} steps")
+            check_launches(tag, s, device_pre, totals)
+            if workers:
+                for part, p in (("train", s), ("val", s["val_pipeline"])):
+                    check(p["pipeline_transfer_bytes_per_batch"] == u8_bytes,
+                          f"{tag} {part}: {p['pipeline_transfer_bytes_per_batch']} bytes a batch, want {u8_bytes}")
+            t4_line(tag, s, card)
+        warm[tag] = stats[-1]
+
+    # The same-call yardstick: the cached raw path, WB/GC/CLAHE in the step.
+    tag = "T4 cached raw"
+    stats, _, _ = train_cli(tag, t4_args(t["epochs"], 0, "--device-cache", "--no-precache-histeq"))
+    cached_totals = {}
+    for s in stats:
+        check_launches(tag, s, device_pre, cached_totals)
+        t4_line(tag, s, card)
+    warm[tag] = stats[-1]
+    base = warm[tag]["train_images_per_s"]
+    print(json.dumps({
+        "run": "T4 warm epoch, host-fed against cached raw",
+        "train_images_per_s": {k: v["train_images_per_s"] for k, v in warm.items()},
+        "step_ms": {k: v["step_ms"] for k, v in warm.items()},
+        "ratio_to_cached": {k: v["train_images_per_s"] / base for k, v in warm.items()},
+        "card": card,
+    }), flush=True)
+
+    # Host preprocessing: cv2 on the host, five float32 views a batch.
+    tag = "T4 host-preprocess"
+    stats, config, _ = train_cli(tag, t4_args(t["epochs"], 2, "--host-preprocess"))
+    check(not config["device_preprocess"], f"{tag}: {config}")
+    views_bytes = 5 * 4 * t["batch"] * t["hw"] * t["hw"] * 3
+    for s in stats:
+        check_launches(tag, s, {"train": ({k: 0 for k in CLAHE_ONLY}, steps),
+                                "val": ({k: 0 for k in CLAHE_ONLY}, val_steps)}, totals)
+        for part, p in (("train", s), ("val", s["val_pipeline"])):
+            check(p["pipeline_transfer_bytes_per_batch"] == views_bytes,
+                  f"{tag} {part}: {p['pipeline_transfer_bytes_per_batch']} bytes a batch, want {views_bytes}")
+        t4_line(tag, s, card)
+
+    # UIEB from --data-root (cv2 writes the tree at 128x160, load_pair
+    # resizes to 112x112), then the scorer in both modes on it.
+    u = T4_UIEB
+    with tempfile.TemporaryDirectory() as d:
+        tree = Path(d)
+        write_uieb_tree(tree, u["pairs"], u["h"], u["w"])
+        tag = "T4 UIEB --data-root"
+        stats, _, _ = train_cli(tag, [
+            "--data-root", str(tree), "--val-size", str(u["val_size"]), "--epochs", "1",
+            "--batch-size", str(t["batch"]), "--height", str(t["hw"]), "--width", str(t["hw"]),
+            "--precision", t["precision"], "--workers", "2",
+        ])
+        n_train = u["pairs"] - u["val_size"]
+        for s in stats:
+            check(s["train_images"] == n_train, f"{tag}: {s['train_images']} train images")
+            check_launches(tag, s, {"train": (CLAHE_ONLY, n_train // t["batch"]),
+                                    "val": (CLAHE_ONLY, u["val_size"] // t["batch"])}, totals)
+            t4_line(tag, s, card)
+        paired = run_score("T4 score, paired", [
+            "--data-root", str(tree), "--val-size", str(u["val_size"]),
+            "--height", str(t["hw"]), "--width", str(t["hw"]), "--batch-size", str(t["batch"]),
+        ])
+        check(list(paired) == ["mse", "ssim", "psnr", "perceptual_loss"], f"paired keys {list(paired)}")
+        nr = run_score("T4 score, no reference", ["--raw-dir", str(tree / "raw-890"),
+                                                   "--batch-size", str(t["batch"])])
+        check(nr["images"] == u["pairs"], f"no-reference scored {nr['images']} images")
+    return totals
+
+
+def run_t4_exact(torch, dev, card) -> None:
+    """T4's bit-for-bit check on ``TrainingEngine``: 4 fp32 steps of
+    16 x 112x112 fed from the host with 2 and 0 workers against the cached
+    raw path, with cuDNN's deterministic algorithms for this check only.
+    Each step's five input views (recomputed from the step's own batch
+    and generator state) and its metrics must be equal."""
+    from waternet_tpu_torch.data.synthetic import SyntheticPairs
+    from waternet_tpu_torch.ops.fused import fused_train_preprocess
+    from waternet_tpu_torch.training.trainer import TrainConfig, TrainingEngine
+
+    t = T4_EXACT
+    pairs = SyntheticPairs(t["pairs"], t["hw"], t["hw"], seed=SEED)
+    idx = np.arange(t["pairs"])
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for how in ("cached raw", "workers=2", "workers=0"):
+            cfg = TrainConfig(batch_size=t["batch"], im_height=t["hw"], im_width=t["hw"],
+                              precision="fp32", cache_codec="raw", precache_histeq=False, seed=SEED)
+            engine = TrainingEngine(cfg, device=dev)
+            views, metrics = [], []
+            step = engine.train_step
+
+            def captured(raw_u8, ref_u8, generator, n_real, *args, step=step, views=views, metrics=metrics):
+                g = torch.Generator().set_state(generator.get_state())
+                with torch.no_grad():
+                    views.append([v.clone() for v in fused_train_preprocess(raw_u8, ref_u8, g, augment=cfg.augment)])
+                metrics.append(step(raw_u8, ref_u8, generator, n_real, *args))
+                return metrics[-1]
+
+            engine.train_step = captured
+            if how == "cached raw":
+                engine.cache_dataset(pairs, idx)
+                engine.train_epoch_cached(0)
+            else:
+                engine.train_epoch_pipelined(pairs, idx, 0, workers=int(how[-1]))
+            torch.cuda.synchronize()
+            runs[how] = (views, [{k: v.item() for k, v in m.items()} for m in metrics])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want_views, want_metrics = runs["cached raw"]
+    check(len(want_views) == t["pairs"] // t["batch"], f"T4 exact: {len(want_views)} steps")
+    line = {"run": "T4 host-fed vs cached raw, bit for bit", "steps": len(want_views), "card": card}
+    for how in ("workers=2", "workers=0"):
+        views, metrics = runs[how]
+        check(len(views) == len(want_views), f"T4 exact {how}: {len(views)} steps")
+        same = [all(torch.equal(a, b) for a, b in zip(va, vb)) for va, vb in zip(views, want_views)]
+        rel = max(abs(m[k] - w[k]) / max(abs(w[k]), 1e-30)
+                  for m, w in zip(metrics, want_metrics) for k in w)
+        line[how] = {"views_equal_per_step": same, "metrics_equal": metrics == want_metrics,
+                     "metrics_max_rel_diff": rel}
+    print(json.dumps(line), flush=True)
+    for how in ("workers=2", "workers=0"):
+        check(all(line[how]["views_equal_per_step"]), f"T4 exact {how}: input views differ")
+        check(line[how]["metrics_equal"], f"T4 exact {how}: metrics differ by rel {line[how]['metrics_max_rel_diff']}")
 
 
 def main() -> int:
@@ -730,6 +955,10 @@ def main() -> int:
     launches["train_T1_bf16"] = run_cli_training(torch, card, "bf16")
     launches["train_T2_fp32"] = run_t2(torch, dev, card)
     run_t3(torch, dev, card)
+
+    # 8. Host-fed training: T4 and its checks.
+    launches["train_T4"] = run_t4(card)
+    run_t4_exact(torch, dev, card)
 
     kernels_line = []
     for name in REPLACES:

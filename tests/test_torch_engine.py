@@ -134,6 +134,8 @@ import waternet_tpu_torch
 for m in pkgutil.walk_packages(waternet_tpu_torch.__path__, "waternet_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+for name in ("data.pipeline", "data.uieb", "training.metrics_nr", "score"):
+    assert "waternet_tpu_torch." + name in sys.modules, name
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2", "waternet_tpu")

@@ -212,7 +212,7 @@ def test_step_generator_depends_on_seed_epoch_and_batch():
 
 @pytest.mark.parametrize(
     "field",
-    [dict(spatial_shards=2), dict(distill=True), dict(precache_vgg_ref=True), dict(host_preprocess=True)],
+    [dict(spatial_shards=2), dict(distill=True), dict(precache_vgg_ref=True)],
     ids=lambda d: next(iter(d)),
 )
 def test_unported_fields_raise(field):
@@ -298,9 +298,9 @@ def test_train_cli_writes_the_artifacts_and_jax_loads_its_weights(tmp_path):
 @pytest.mark.parametrize(
     "args,needle",
     [
-        (["--synthetic", "8"], "host-fed training is not ported"),
-        (["--device-cache"], "UIEB loader"),
         (["--synthetic", "8", "--cache-codec", "dct8"], "requires --device-cache"),
+        (["--synthetic", "8", "--host-preprocess", "--device-preprocess"], "mutually exclusive"),
+        (["--synthetic", "8", "--device-cache", "--host-preprocess"], "requires device preprocessing"),
     ],
 )
 def test_train_cli_refuses_what_is_not_ported(args, needle, tmp_path):

@@ -11,10 +11,16 @@ The draws come from an explicit ``torch.Generator`` (the trainer's is a
 CPU generator, so the CPU and CUDA ports draw alike); they differ from
 ``jax.random``'s by design. :func:`apply_augment_batch` applies given draws
 exactly as the JAX package does, which the tests pin with shared draws.
+
+The host-preprocess path augments on the host instead:
+:func:`augment_pair_np` and :func:`advance_augment_rng` are the JAX
+package's numpy functions, drawing from a ``np.random.Generator``, so both
+packages draw alike there.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from waternet_tpu_torch.utils.tensor import to_device
@@ -65,3 +71,40 @@ def augment_pair_batch(generator: torch.Generator, raw: torch.Tensor, ref: torch
         apply_augment_batch(raw, hflip, vflip, rotk),
         apply_augment_batch(ref, hflip, vflip, rotk),
     )
+
+
+def augment_pair_np(rng: np.random.Generator, raw: np.ndarray, ref: np.ndarray):
+    """Host (numpy) version of the same policy, for the host-preprocess
+    path: (N, H, W, C) uint8 ``raw``/``ref`` -> augmented copies.
+
+    Per image: hflip draw, vflip draw, rotate draw and, only when the
+    rotate draw hits, one ``integers(0, 4)``; a non-square batch keeps
+    k == 2 only, as the device path does."""
+    raw = np.array(raw, copy=True)
+    ref = np.array(ref, copy=True)
+    square = raw.shape[1] == raw.shape[2]
+    for i in range(raw.shape[0]):
+        if rng.random() < 0.5:
+            raw[i] = raw[i][:, ::-1]
+            ref[i] = ref[i][:, ::-1]
+        if rng.random() < 0.5:
+            raw[i] = raw[i][::-1]
+            ref[i] = ref[i][::-1]
+        if rng.random() < 0.5:
+            k = int(rng.integers(0, 4))
+            if not square:
+                k = 2 if k == 2 else 0
+            raw[i] = np.rot90(raw[i], k, axes=(0, 1))
+            ref[i] = np.rot90(ref[i], k, axes=(0, 1))
+    return raw, ref
+
+
+def advance_augment_rng(rng: np.random.Generator, n_items: int) -> None:
+    """Advance a host augment stream past ``n_items`` images without data:
+    :func:`augment_pair_np` consumes the generator in a data-independent
+    pattern, so the pipeline can hand each batch its own start state."""
+    for _ in range(n_items):
+        rng.random()
+        rng.random()
+        if rng.random() < 0.5:
+            rng.integers(0, 4)

@@ -1,11 +1,14 @@
-"""The epoch shuffle.
+"""The epoch shuffle and the host-side batch iterator.
 
-Own copy of the JAX package's ``data/batching.py::epoch_permutation``: the
-same numpy Philox stream, so the port composes every epoch's batches
-exactly as the JAX trainer does.
+Own copy of the JAX package's ``data/batching.py``: the same numpy Philox
+stream, so the port composes every epoch's batches exactly as the JAX
+trainer does, whether the batches come from the host or from a device
+cache.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Iterator, Tuple
 
 import numpy as np
 
@@ -17,3 +20,23 @@ def epoch_permutation(indices, seed: int, epoch: int) -> np.ndarray:
     np.random.Generator(np.random.Philox(key=seed + 7919 * epoch)).shuffle(order)
     return order
 
+
+def iter_batches(
+    load_pair: Callable[[int], Tuple[np.ndarray, np.ndarray]],
+    indices,
+    batch_size: int,
+    shuffle: bool = True,
+    seed: int = 0,
+    epoch: int = 0,
+    drop_remainder: bool = False,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield (raw_u8, ref_u8) NHWC uint8 batches for one epoch, in the
+    order :func:`epoch_permutation` gives (or ``indices`` as given with
+    ``shuffle=False``)."""
+    order = epoch_permutation(indices, seed, epoch) if shuffle else np.array(indices, copy=True)
+    n = len(order)
+    stop = n - n % batch_size if drop_remainder else n
+    for start in range(0, stop, batch_size):
+        chunk = order[start : start + batch_size]
+        raws, refs = zip(*(load_pair(int(i)) for i in chunk))
+        yield np.stack(raws), np.stack(refs)

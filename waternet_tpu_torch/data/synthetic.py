@@ -8,9 +8,11 @@ texture with a blue-green cast and channel-dependent attenuation.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
+
+from waternet_tpu_torch.data.batching import iter_batches
 
 
 class SyntheticPairs:
@@ -50,6 +52,11 @@ class SyntheticPairs:
         pair = (raw.astype(np.uint8), ref.astype(np.uint8))
         self._cache[idx] = pair
         return pair
+
+    def batches(self, indices, batch_size: int, **kwargs) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yield (raw_u8, ref_u8) batches for one epoch (see
+        :func:`waternet_tpu_torch.data.batching.iter_batches`)."""
+        return iter_batches(self.load_pair, indices, batch_size, **kwargs)
 
 
 def synthetic_split(n: int, val_size: int = 90):

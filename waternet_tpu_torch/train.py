@@ -1,21 +1,34 @@
-"""Training CLI of the port: WaterNet trained from a device-resident cache.
+"""Training CLI of the port: WaterNet trained host-fed or from a device cache.
 
+    python -m waternet_tpu_torch.train --data-root data --workers 2
     python -m waternet_tpu_torch.train --synthetic 64 --device-cache \\
         --cache-codec dct8 --height 256 --width 256 --batch-size 8
 
-The flags follow the JAX package's ``train.py``. The dataset is pinned on
-the device (``--device-cache``) under ``--cache-codec`` and every step
-gathers and decodes its batch there. Each run writes
+The flags follow the JAX package's ``train.py``. The data is UIEB under
+``--data-root`` (``raw-890/`` and ``reference-890/``, the reference's
+seed-0 split, corrupt pairs quarantined up front) or ``--synthetic N``
+pairs. Three ways to feed the steps:
+
+* host-fed and overlapped (the default, ``--workers 2``): worker threads
+  load the next batches, and copy them to the device while the current
+  step runs;
+* host-fed and synchronous (``--workers 0``);
+* ``--device-cache``: the dataset is pinned on the device under
+  ``--cache-codec`` and every step gathers and decodes its batch there.
+
+By default (``--device-preprocess``) the host ships raw uint8 pairs and
+augment + WB/GC/CLAHE run in the step, on the CLAHE kernels;
+``--host-preprocess`` runs cv2's WB/GC/CLAHE on the host and ships the five
+float32 views (ten times the bytes). Each run writes
 ``<train-root>/<n>/{last.npz, metrics-train.csv, metrics-val.csv,
 summary.json, config.json}``; ``last.npz`` is in the JAX package's layout,
 so either package loads it. Per epoch it prints the JAX CLI's lines and
 one ``epoch_stats {...}`` JSON line: images/s, step ms (the device
-synchronised at the epoch's end), peak device memory, and each kernel's
-launches in the train and val passes.
+synchronised at the epoch's end), peak device memory, each kernel's
+launches in the train and val passes and, host-fed, the ``pipeline_*``
+keys (stall pct, per-stage ms, transfer bytes per batch).
 
-Runs on CUDA unless ``--device cpu`` is given. Host-fed training (no
-``--device-cache``) and the UIEB loader (no ``--synthetic``) are not
-ported yet and exit with a message.
+Runs on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -45,8 +58,19 @@ def parse_args(argv=None):
                    help="Model/VGG compute dtype; parameters stay fp32 (default bf16).")
     p.add_argument("--vgg-weights", help="VGG19 weights for the perceptual loss (.npz JAX layout, or torchvision .pt).")
     p.add_argument("--no-perceptual", action="store_true", help="Drop the VGG perceptual term.")
+    p.add_argument("--data-root", default="data", help="UIEB root holding raw-890/ and reference-890/ (default data).")
+    p.add_argument("--host-preprocess", action="store_true",
+                   help="cv2/NumPy WB+GC+CLAHE on the host: the feed ships five float32 views per batch.")
+    p.add_argument("--device-preprocess", action="store_true",
+                   help="Name the default mode: the feed ships raw uint8 pairs and augment + WB/GC/CLAHE run in the "
+                   "step, on the CLAHE kernels. Conflicts with --host-preprocess.")
+    p.add_argument("--workers", type=int, default=2, metavar="N",
+                   help="Host-fed: N worker threads load (and host-preprocess) batches and copy them to the device "
+                   "ahead of the step, bit for bit the synchronous epoch; 0 = synchronous (default 2).")
+    p.add_argument("--prefetch", type=int, default=0, metavar="K",
+                   help="Batches in flight in the input pipeline (default 0 = 2x workers).")
     p.add_argument("--device-cache", action="store_true",
-                   help="Pin the dataset on the device and gather batches there (required: host-fed training is not ported).")
+                   help="Pin the dataset on the device and gather batches there.")
     p.add_argument("--cache-codec", default="raw", choices=["raw", "yuv420", "dct8", "auto"],
                    help="Codec of the device cache: raw (1x), yuv420 (2x), dct8 (4x, decoded by a CUDA kernel in the step), "
                    "or auto (the budgeter picks the cheapest decode that fits).")
@@ -57,23 +81,19 @@ def parse_args(argv=None):
     p.add_argument("--no-shuffle", action="store_true", help="No train shuffling.")
     p.add_argument("--no-augment", action="store_true", help="No flips/rot90 augmentation.")
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
-                   help="Train on N synthetic pairs (required: the UIEB loader is not ported).")
+                   help="Train on N synthetic pairs instead of reading --data-root.")
     p.add_argument("--train-root", help="Base directory of the numbered run directories (default: training/ at the repository root).")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'.")
     args = p.parse_args(argv)
+    if args.device_preprocess and args.host_preprocess:
+        p.error(
+            "--device-preprocess and --host-preprocess are mutually exclusive (device "
+            "preprocessing is the default; --host-preprocess selects the cv2 host path)"
+        )
     if args.cache_codec != "raw" and not (args.device_cache or args.cache_report):
         p.error("--cache-codec requires --device-cache")
-    if not args.synthetic:
-        p.error(
-            "reading UIEB from --data-root is not ported to waternet_tpu_torch yet "
-            "(ROADMAP Queue A item 4: the UIEB loader); use --synthetic N"
-        )
-    if not (args.device_cache or args.cache_report):
-        p.error(
-            "host-fed training is not ported to waternet_tpu_torch yet "
-            "(ROADMAP Queue A item 5: host-fed training and the pipeline); "
-            "pass --device-cache"
-        )
+    if args.device_cache and args.host_preprocess:
+        p.error("--device-cache requires device preprocessing")
     return args
 
 
@@ -82,6 +102,7 @@ def main(argv=None) -> int:
     start_ts = time.perf_counter()
     from waternet_tpu_torch.data import codec as cachecodec
     from waternet_tpu_torch.data.synthetic import SyntheticPairs, synthetic_split
+    from waternet_tpu_torch.data.uieb import UIEBDataset, reference_split
     from waternet_tpu_torch.models.vgg import resolve_vgg_params
     from waternet_tpu_torch.ops import kernels
     from waternet_tpu_torch.training.trainer import (
@@ -111,11 +132,21 @@ def main(argv=None) -> int:
         seed=args.seed,
         augment=not args.no_augment,
         perceptual_weight=0.0 if args.no_perceptual else 0.05,
+        host_preprocess=args.host_preprocess,
         precache_histeq=not args.no_precache_histeq,
         cache_codec=args.cache_codec,
     )
-    dataset = SyntheticPairs(args.synthetic, args.height, args.width, seed=args.seed)
-    train_idx, val_idx = synthetic_split(len(dataset), args.val_size)
+    if args.synthetic:
+        dataset = SyntheticPairs(args.synthetic, args.height, args.width, seed=args.seed)
+        train_idx, val_idx = synthetic_split(len(dataset), args.val_size)
+    else:
+        root = Path(args.data_root)
+        dataset = UIEBDataset(root / "raw-890", root / "reference-890", im_height=args.height, im_width=args.width)
+        train_idx, val_idx = reference_split(len(dataset), n_val=args.val_size)
+        # Decode every pair up front: corrupt pairs are quarantined before
+        # the batches are composed (the RAM cache pays this cost anyway).
+        train_idx = dataset.prevalidate(train_idx)
+        val_idx = dataset.prevalidate(val_idx)
 
     if args.cache_report:
         headroom = cachecodec.resolve_headroom(dev)
@@ -134,13 +165,33 @@ def main(argv=None) -> int:
         params = resolve_weights(args.weights)
     vgg_params = None if args.no_perceptual else resolve_vgg_params(args.vgg_weights)
     engine = TrainingEngine(config, params=params, vgg_params=vgg_params, device=dev)
-    engine.cache_dataset(dataset, train_idx)
-    print(
-        f"Device cache: codec={engine.config.cache_codec} "
-        f"resident={engine.cache_resident_bytes()} bytes "
-        f"({len(train_idx)} pairs at {args.height}x{args.width})",
-        flush=True,
-    )
+    if args.device_cache:
+        engine.cache_dataset(dataset, train_idx)
+        print(
+            f"Device cache: codec={engine.config.cache_codec} "
+            f"resident={engine.cache_resident_bytes()} bytes "
+            f"({len(train_idx)} pairs at {args.height}x{args.width})",
+            flush=True,
+        )
+
+    def train_epoch(epoch):
+        if args.device_cache:
+            return engine.train_epoch_cached(epoch)
+        if args.workers > 0:
+            return engine.train_epoch_pipelined(
+                dataset, train_idx, epoch, workers=args.workers, prefetch=args.prefetch
+            )
+        batches = dataset.batches(
+            train_idx, config.batch_size, shuffle=config.shuffle, seed=config.seed, epoch=epoch
+        )
+        return engine.train_epoch(batches, epoch)
+
+    def val_epoch():
+        if args.device_cache:
+            return engine.eval_epoch_cached(dataset=dataset, indices=val_idx)
+        if args.workers > 0:
+            return engine.eval_epoch_pipelined(dataset, val_idx, workers=args.workers, prefetch=args.prefetch)
+        return engine.eval_epoch(dataset.batches(val_idx, config.batch_size, shuffle=False))
 
     train_root = Path(args.train_root) if args.train_root else _REPO_ROOT / "training"
     savedir = next_run_dir(train_root)
@@ -154,12 +205,12 @@ def main(argv=None) -> int:
         kernels.reset_launches()
         sync()
         t0 = time.perf_counter()
-        train_metrics = engine.train_epoch_cached(epoch)
+        train_metrics = train_epoch(epoch)
         sync()
         train_dt = time.perf_counter() - t0
         train_launches = dict(kernels.LAUNCHES)
         kernels.reset_launches()
-        val_metrics = engine.eval_epoch_cached(dataset=dataset, indices=val_idx)
+        val_metrics = val_epoch()
         sync()
         dt = time.perf_counter() - t0
         val_launches = dict(kernels.LAUNCHES)
@@ -176,13 +227,16 @@ def main(argv=None) -> int:
             "steps": n_steps, "train_s": train_dt, "val_s": dt - train_dt,
             "train_images_per_s": ips, "step_ms": train_dt / n_steps * 1e3,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
-            "train": train_metrics, "val": val_metrics,
+            "train": {k: train_metrics[k] for k in TRAIN_METRICS_NAMES},
+            "val": {k: val_metrics[k] for k in VAL_METRICS_NAMES},
+            **{k: v for k, v in train_metrics.items() if k.startswith("pipeline_")},
+            "val_pipeline": {k: v for k, v in val_metrics.items() if k.startswith("pipeline_")},
             "launches": {"train": train_launches, "val": val_launches},
         }), flush=True)
-        for k, v in train_metrics.items():
-            saved_train[k].append(v)
-        for k, v in val_metrics.items():
-            saved_val[k].append(v)
+        for k in TRAIN_METRICS_NAMES:
+            saved_train[k].append(train_metrics[k])
+        for k in VAL_METRICS_NAMES:
+            saved_val[k].append(val_metrics[k])
         savedir.mkdir(parents=True, exist_ok=True)
         save_weights(engine.model.state_dict(), savedir / "last.npz")
 
@@ -207,9 +261,9 @@ def main(argv=None) -> int:
         "precision": args.precision,
         "shuffle": config.shuffle,
         "augment": config.augment,
-        "device_preprocess": True,
+        "device_preprocess": not config.host_preprocess,
         "device": str(dev),
-        "cache_codec": engine.config.cache_codec,
+        "cache_codec": engine.config.cache_codec if args.device_cache else None,
         "cache_resident_bytes": engine.cache_resident_bytes(),
     }, indent=4))
     print(f"Metrics and weights saved to {savedir}")

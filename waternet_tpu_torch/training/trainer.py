@@ -1,13 +1,31 @@
-"""Training engine: WaterNet trained from a dataset held on the device.
+"""Training engine: WaterNet trained from the host or from a device cache.
 
-The port of the JAX package's ``training/trainer.py``, for its
-device-cache path. ``cache_dataset`` pins the dataset on the device under
-a codec (``raw``, ``yuv420`` or ``dct8``, :mod:`waternet_tpu_torch.data.
-codec`); every step gathers its batch by index there, decodes it there,
+The port of the JAX package's ``training/trainer.py``. Two ways to feed a
+step, the same step either way:
+
+* **host-fed** (the reference's default): :meth:`TrainingEngine.
+  train_epoch` over a batch iterator, or :meth:`TrainingEngine.
+  train_epoch_pipelined`, where an :class:`~waternet_tpu_torch.data.
+  pipeline.OrderedPipeline` of worker threads loads batch k+1, (with
+  ``host_preprocess``) runs cv2's WB/GC/CLAHE on it, and copies it to the
+  device (:class:`~waternet_tpu_torch.utils.tensor.DeviceFeeder`) while
+  step k runs. The pipelined epoch equals the synchronous one bit for
+  bit; its metrics carry the ``pipeline_*`` keys.
+* **device cache**: ``cache_dataset`` pins the dataset on the device
+  under a codec (``raw``, ``yuv420`` or ``dct8``, :mod:`waternet_tpu_torch.
+  data.codec`); every step gathers its batch by index there and decodes
+  it there. The host sends indices only.
+
+By default (device preprocessing) a step gets uint8 (raw, ref) batches
 and runs augment, WB/GC/CLAHE (the CLAHE kernels), the WaterNet forward
 and backward, MSE plus the VGG19 perceptual loss, and Adam under the
-reference's staircase schedule. The host sends indices only and reads
-the metrics once per epoch.
+reference's staircase schedule; its augmentation comes from
+:func:`step_generator` (seed, epoch, batch), so a batch gives the same
+step whether it came from the host or from the raw cache. With
+``host_preprocess`` the step gets the five float32 views made on the
+host (``train_step_pre``), augmented by numpy draws from
+``default_rng(seed + 7 + epoch)``, as in the JAX package. Metrics are
+read back once per epoch.
 
 Optimization, as the reference and the JAX package: Adam, lr 1e-3 (the
 betas and eps of ``optax.adam``), times 0.1 every ``lr_step`` minibatches
@@ -25,15 +43,16 @@ preprocess, forward, losses, backward, optimizer, metrics);
 nothing.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item rather than being ignored): host-fed epochs and the input pipeline,
-the precache tables (``precache_histeq`` with the raw codec,
-``precache_vgg_ref``), ``host_preprocess``, spatial sharding, and
-distillation.
+item rather than being ignored): the precache tables (``precache_histeq``
+with the raw codec, ``precache_vgg_ref``), spatial sharding, and
+distillation. Mid-epoch resume and the resilience controls of the JAX
+epochs (``start_batch``, ``carry``, ``control``) are not ported either.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 from typing import Optional
 
@@ -41,16 +60,19 @@ import numpy as np
 import torch
 
 from waternet_tpu_torch.data import codec as cachecodec
+from waternet_tpu_torch.data.augment import advance_augment_rng, augment_pair_np
 from waternet_tpu_torch.data.batching import epoch_permutation
+from waternet_tpu_torch.data.pipeline import OrderedPipeline, PipelineStats
 from waternet_tpu_torch.models import WaterNet
 from waternet_tpu_torch.models.vgg import VGG19Features, init_vgg_params
 from waternet_tpu_torch.ops.fused import fused_train_preprocess
+from waternet_tpu_torch.ops.transform import transform_np
 from waternet_tpu_torch.training.losses import PERCEPTUAL_WEIGHT, mse_255, perceptual_loss
 from waternet_tpu_torch.training.metrics import psnr as psnr_fn
 from waternet_tpu_torch.training.metrics import ssim as ssim_fn
 from waternet_tpu_torch.utils.convert import state_dict_from_jax, vgg_state_dict_from_jax
 from waternet_tpu_torch.utils.device import resolve_device
-from waternet_tpu_torch.utils.tensor import to_device
+from waternet_tpu_torch.utils.tensor import DeviceFeeder, to_device
 
 TRAIN_METRICS_NAMES = ["mse", "ssim", "psnr", "perceptual_loss", "loss"]
 VAL_METRICS_NAMES = ["mse", "ssim", "psnr", "perceptual_loss"]
@@ -90,7 +112,6 @@ class TrainConfig:
             "spatial_shards > 1": (self.spatial_shards > 1, "Queue A item 8 (multi-GPU)"),
             "distill": (self.distill, "Queue A item 7 (fast tier)"),
             "precache_vgg_ref": (self.precache_vgg_ref, "Queue A item 5 (precache tables)"),
-            "host_preprocess": (self.host_preprocess, "Queue A item 5 (host-fed training)"),
         }
         for name, (on, item) in missing.items():
             if on:
@@ -171,6 +192,7 @@ class TrainingEngine:
             self.vgg.to(self.device).eval().requires_grad_(False)
 
         self.optimizer, self.scheduler = make_optimizer(self.model.parameters(), config)
+        self._feeder = DeviceFeeder(self.device)
         self._cache_enc = None
         self._val_cache = None
 
@@ -218,12 +240,15 @@ class TrainingEngine:
         """One optimizer step on a uint8 (N, H, W, 3) pair batch on the
         engine's device; returns the step's metrics as 0-d device tensors
         (nothing is read back)."""
-        mask = self._mask(raw_u8.shape[0], n_real)
         with torch.no_grad():
-            x, wbn, hen, gcn, refn = fused_train_preprocess(
-                raw_u8, ref_u8, generator, augment=self.config.augment
-            )
+            views = fused_train_preprocess(raw_u8, ref_u8, generator, augment=self.config.augment)
         stamp("preprocess")
+        return self.train_step_pre(*views, n_real, stamp=stamp)
+
+    def train_step_pre(self, x, wbn, hen, gcn, refn, n_real: int, stamp=_no_stamp) -> dict:
+        """One optimizer step on the five float32 [0, 1] views, in the
+        network's input order; no transform runs inside it."""
+        mask = self._mask(x.shape[0], n_real)
         loss, out, aux = self._losses_and_out(x, wbn, hen, gcn, refn, mask, stamp)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -237,8 +262,11 @@ class TrainingEngine:
 
     @torch.no_grad()
     def eval_step(self, raw_u8, ref_u8, n_real: int) -> dict:
-        mask = self._mask(raw_u8.shape[0], n_real)
-        x, wbn, hen, gcn, refn = fused_train_preprocess(raw_u8, ref_u8, None)
+        return self.eval_step_pre(*fused_train_preprocess(raw_u8, ref_u8, None), n_real)
+
+    @torch.no_grad()
+    def eval_step_pre(self, x, wbn, hen, gcn, refn, n_real: int) -> dict:
+        mask = self._mask(x.shape[0], n_real)
         _, out, aux = self._losses_and_out(x, wbn, hen, gcn, refn, mask)
         return self._metrics(out, refn, aux, mask)
 
@@ -273,6 +301,8 @@ class TrainingEngine:
         ``config.cache_codec``, after the preflight budgeter (which resolves
         ``auto``). Lossy codecs pin the encoded planes; each step decodes
         only its batch."""
+        if self.config.host_preprocess:
+            raise ValueError("the device cache requires device preprocessing (host_preprocess=False)")
         codec = self._preflight_cache_budget(len(indices))
         if codec == "raw" and self.config.precache_histeq:
             raise NotImplementedError(
@@ -368,3 +398,160 @@ class TrainingEngine:
         ]
         self.model.train()
         return self._epoch_means(per_step, VAL_METRICS_NAMES)
+
+    # ------------------------------------------------------------------
+    # Host-fed epochs
+    # ------------------------------------------------------------------
+
+    def _host_preprocess_np(self, raw, ref, rng_np=None):
+        """The host-preprocess path's host stage: the optional paired
+        augment, then cv2's WB/GC/CLAHE per image, returned as the five
+        float32 numpy views ``(x, wb, he, gc, ref)`` scaled to [0, 1]."""
+        if rng_np is not None and self.config.augment:
+            raw, ref = augment_pair_np(rng_np, raw, ref)
+        wbs, gcs, hes = zip(*(transform_np(f) for f in raw))
+        as_f = lambda arrs: np.stack(list(arrs)).astype(np.float32) / 255.0  # noqa: E731
+        return as_f(raw), as_f(wbs), as_f(hes), as_f(gcs), as_f(ref)
+
+    def _train_on(self, epoch: int, count: int, tensors, n_real: int) -> dict:
+        """One train step on a batch already on the device: the five views
+        (host preprocessing) or the uint8 (raw, ref) pair, augmented by the
+        step's own generator as in ``train_epoch_cached``."""
+        if self.config.host_preprocess:
+            return self.train_step_pre(*tensors, n_real)
+        return self.train_step(*tensors, step_generator(self.config.seed, epoch, count), n_real)
+
+    def _eval_on(self, tensors, n_real: int) -> dict:
+        if self.config.host_preprocess:
+            return self.eval_step_pre(*tensors, n_real)
+        return self.eval_step(*tensors, n_real)
+
+    def _feed(self, arrays):
+        """Host arrays -> device tensors, on the consumer's thread."""
+        return self._feeder.receive(self._feeder.send(arrays))
+
+    def train_epoch(self, batch_iter, epoch: int) -> dict:
+        """One synchronous host-fed epoch over ``(raw_u8, ref_u8)`` numpy
+        batches; the mean of the per-step metrics, read back once. With
+        ``host_preprocess`` the batches are augmented from one numpy
+        stream, ``default_rng(seed + 7 + epoch)``, batch after batch."""
+        host_rng = np.random.default_rng(self.config.seed + 7 + epoch)
+        self.model.train()
+        per_step = []
+        for count, (raw, ref) in enumerate(batch_iter):
+            arrays = self._host_preprocess_np(raw, ref, host_rng) if self.config.host_preprocess else (raw, ref)
+            per_step.append(self._train_on(epoch, count, self._feed(arrays), raw.shape[0]))
+        return self._epoch_means(per_step, TRAIN_METRICS_NAMES)
+
+    def eval_epoch(self, batch_iter) -> dict:
+        """Synchronous host-fed eval over ``(raw_u8, ref_u8)`` numpy batches
+        (no augmentation)."""
+        self.model.eval()
+        per_step = []
+        for raw, ref in batch_iter:
+            arrays = self._host_preprocess_np(raw, ref) if self.config.host_preprocess else (raw, ref)
+            per_step.append(self._eval_on(self._feed(arrays), raw.shape[0]))
+        self.model.train()
+        return self._epoch_means(per_step, VAL_METRICS_NAMES)
+
+    def _epoch_plan(self, indices, epoch: int, shuffle: bool):
+        """``[(count, index_chunk)]`` for one epoch: the batches of
+        :func:`~waternet_tpu_torch.data.batching.iter_batches` (same Philox
+        stream) as a work list whose items workers may produce in any
+        order."""
+        order = epoch_permutation(indices, self.config.seed, epoch) if shuffle else np.array(indices, copy=True)
+        b = self.config.batch_size
+        return [(count, order[s : s + b]) for count, s in enumerate(range(0, len(order), b))]
+
+    def _plan_augment_states(self, plan, epoch: int):
+        """Each batch's start state of the host augment stream, or None when
+        the stream is unused. The consumer advances the one stream the
+        synchronous epoch draws from, without data, and records where each
+        batch starts; a worker clones its batch's state and makes the same
+        draws in any completion order. The port runs on one device, so a
+        batch of n items consumes n items' draws (no padding rows)."""
+        if not (self.config.host_preprocess and self.config.augment):
+            return None
+        host_rng = np.random.default_rng(self.config.seed + 7 + epoch)
+        states = {}
+        for count, chunk in plan:
+            states[count] = copy.deepcopy(host_rng.bit_generator.state)
+            advance_augment_rng(host_rng, len(chunk))
+        return states
+
+    def _pipeline_produce(self, dataset, aug_states, stats: PipelineStats):
+        """The worker function for one ``(count, chunk)`` work item: load
+        the pairs, (host preprocessing) run the host stage with the batch's
+        own cloned RNG, and copy the result to the device, each stage timed
+        into ``stats``. A pure function of the item, so completion order
+        cannot change results. Returns ``(count, sent, n_real)``; the
+        consumer keeps no batch past its step, only its 0-d metrics."""
+
+        def produce(item):
+            count, chunk = item
+            with stats.stage("load"):
+                pairs = [dataset.load_pair(int(i)) for i in chunk]
+                raw = np.stack([p[0] for p in pairs])
+                ref = np.stack([p[1] for p in pairs])
+            arrays = (raw, ref)
+            if self.config.host_preprocess:
+                rng_np = None
+                if aug_states is not None:
+                    rng_np = np.random.default_rng(0)
+                    rng_np.bit_generator.state = copy.deepcopy(aug_states[count])
+                with stats.stage("preprocess"):
+                    arrays = self._host_preprocess_np(raw, ref, rng_np)
+            with stats.stage("transfer"):
+                sent = self._feeder.send(arrays)
+            stats.add_transfer_bytes(sum(a.nbytes for a in arrays))
+            return count, sent, len(chunk)
+
+        return produce
+
+    def _run_pipeline(self, dataset, plan, aug_states, step, workers: int, prefetch: int, name: str):
+        """Drive ``step(count, tensors, n_real)`` over ``plan`` through an
+        :class:`OrderedPipeline`; -> (per-step metrics, stats). The
+        ``step`` stage times the step's enqueue on the consumer thread."""
+        stats = PipelineStats()
+        per_step = []
+        produce = self._pipeline_produce(dataset, aug_states, stats)
+        with OrderedPipeline(produce, plan, workers=workers, prefetch=prefetch, stats=stats, name=name) as pipe:
+            for count, sent, n_real in pipe:
+                with stats.stage("step"):
+                    per_step.append(step(count, self._feeder.receive(sent), n_real))
+        return per_step, stats
+
+    def train_epoch_pipelined(self, dataset, indices, epoch: int, *, workers: int = 2, prefetch: int = 0) -> dict:
+        """Overlapped host-fed epoch: equal, bit for bit, to
+        :meth:`train_epoch` over ``dataset.batches(indices, ...)`` (same
+        batches, same augment draws, same steps), with loading, host
+        preprocessing and the copy to the device of later batches running
+        on ``workers`` threads while the current step runs. ``workers=0``
+        runs the same code inline. The metrics gain the ``pipeline_*``
+        keys: stall pct, per-stage ms, queue depth, workers, and the
+        transfer bytes per batch."""
+        plan = self._epoch_plan(indices, epoch, self.config.shuffle)
+        aug_states = self._plan_augment_states(plan, epoch)
+        self.model.train()
+        per_step, stats = self._run_pipeline(
+            dataset, plan, aug_states,
+            lambda count, tensors, n_real: self._train_on(epoch, count, tensors, n_real),
+            workers, prefetch, "train",
+        )
+        out = self._epoch_means(per_step, TRAIN_METRICS_NAMES)
+        out.update(stats.metrics())
+        return out
+
+    def eval_epoch_pipelined(self, dataset, indices, *, workers: int = 2, prefetch: int = 0) -> dict:
+        """Pipelined counterpart of :meth:`eval_epoch` (no shuffle, no
+        augmentation): the same metric values, plus the ``pipeline_*`` keys."""
+        plan = self._epoch_plan(indices, epoch=0, shuffle=False)
+        self.model.eval()
+        per_step, stats = self._run_pipeline(
+            dataset, plan, None, lambda count, tensors, n_real: self._eval_on(tensors, n_real),
+            workers, prefetch, "eval",
+        )
+        self.model.train()
+        out = self._epoch_means(per_step, VAL_METRICS_NAMES)
+        out.update(stats.metrics())
+        return out

@@ -3,6 +3,8 @@ layout is the JAX package's NHWC; the model permutes inside)."""
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -31,3 +33,52 @@ def to_device(t: torch.Tensor, device) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+class DeviceFeeder:
+    """Host-to-device copies made on pipeline worker threads, overlapping
+    the step that runs on the consumer's stream.
+
+    :meth:`send` (worker side) copies host arrays through pinned memory on
+    a CUDA stream of the calling thread's own, ``non_blocking``, records
+    an event and waits for it, so the worker's transfer stage times the
+    copy and the consumer never does. A copy from pageable memory would
+    block the host, and one on the default stream would serialise with the
+    step. Pinned buffers come from PyTorch's caching host allocator, which
+    reuses a buffer only once its copy's event has completed.
+
+    :meth:`receive` (consumer side) makes the current stream wait on that
+    event and marks each tensor as used by it (``record_stream``), so the
+    caching allocator does not hand the tensor's memory back to the copy
+    stream while the step still reads it. On the CPU nothing is copied:
+    the tensors share the arrays' memory.
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._local = threading.local()
+
+    def send(self, arrays):
+        """numpy arrays -> (tensors on the device, the copy's event or None)."""
+        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        if self.device.type != "cuda":
+            return host, None
+        stream = getattr(self._local, "stream", None)
+        if stream is None:
+            stream = self._local.stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(stream):
+            out = [t.pin_memory().to(self.device, non_blocking=True) for t in host]
+            event = torch.cuda.Event()
+            event.record(stream)
+        event.synchronize()
+        return out, event
+
+    def receive(self, sent):
+        """What :meth:`send` returned -> tensors the current stream may use."""
+        tensors, event = sent
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in tensors:
+                t.record_stream(stream)
+        return tensors
