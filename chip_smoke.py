@@ -47,7 +47,9 @@ Phases; any failure exits non-zero, and nothing below is caught:
    on, each epoch's launches read around it:
    T1 ``python -m waternet_tpu_torch.train`` as a subprocess, dct8 device
    cache, 8 x 256x256, 64 pairs (56 train / 8 val), 2 epochs, fp32, then
-   the same in bf16; T2 ``TrainingEngine`` directly, raw cache with WB/GC/
+   the same in bf16 (its raw val cache has identity-variant precache
+   tables, built in the first val pass: one launch of each CLAHE kernel,
+   none in the val steps); T2 ``TrainingEngine`` directly, raw cache with WB/GC/
    CLAHE in the step, 16 x 112x112, 64 pairs, 2 epochs (the first holds
    the first-call setup: cuDNN plans, lazy kernel loading), fp32; T3 one dct8
    train step at 4 x 64x64, fp32, no augmentation, on the card and on the
@@ -70,7 +72,23 @@ Phases; any failure exits non-zero, and nothing below is caught:
    host), and a UIEB-layout tree written with cv2 at 128x160: one epoch
    trained from ``--data-root`` (resized to 112x112 on load) and ``python
    -m waternet_tpu_torch.score`` in its paired and no-reference modes on
-   it, with finite metrics.
+   it, with finite metrics;
+9. T5, the precache tables (``--device-cache``'s default with the raw
+   codec) at T4's config: ``python -m waternet_tpu_torch.train
+   --device-cache`` (64 pairs, 2 epochs, bf16), then with
+   ``--precache-vgg-ref``: the table build launches each CLAHE kernel
+   once per chunk (4 train chunks of 8 variants x 16 items, 1 val chunk),
+   the precached train and val steps none; the warm step ms, the build's
+   seconds, the resident bytes (exactly the budgeter's estimate) and peak
+   memory. Then, on ``TrainingEngine`` at fp32 with cuDNN's deterministic
+   algorithms, 4 precached steps of 16 x 112x112 against 4 in-step
+   raw-cache steps: the five input views and the metrics bit for bit; the
+   card's WB/GC tables equal to the CPU port's, its CLAHE table within
+   one level (the share printed); ``precache_vgg_ref``'s epoch within rel
+   1e-4, abs 1e-6 of the in-step one. Then ``python -m
+   waternet_tpu_torch.bench`` at its defaults and with ``--config
+   train_fullres``: each exits 0 and ends in its contract line with a
+   finite positive value and ``mfu`` in (0, 1].
 
 The last lines are the ``{"kernels": [...]}`` summary, the card line and
 the ``{"ok": true, "device": ...}`` result. Inputs are made with numpy
@@ -123,8 +141,13 @@ T3 = dict(batch=4, hw=64)
 T4 = dict(synthetic=272, val_size=16, epochs=2, batch=16, hw=112, precision="bf16")
 T4_EXACT = dict(pairs=64, batch=16, hw=112)  # 4 steps
 T4_UIEB = dict(pairs=48, val_size=16, h=128, w=160)  # 2 train steps, 1 val step
-# Launches per train or val step on the device-preprocess path.
+# Launches per train or val step on the device-preprocess path, and on the
+# precached one.
 CLAHE_ONLY = {"tile_lut": 1, "clahe_lut_planes": 1, "tile_histogram": 0, "dct8_dequant_idct": 0}
+NO_LAUNCH = dict.fromkeys(CLAHE_ONLY, 0)
+# T5: the precache tables, the CLI's --device-cache default, at T4's
+# config; the bit-for-bit engine check at T4_EXACT's.
+T5 = dict(synthetic=64, val_size=8, epochs=2, batch=16, hw=112, precision="bf16")
 # The training batches the CLAHE kernels are also held at: (batch, side, codec).
 TRAIN_PLANES = {"T1": (T1["batch"], T1["hw"], "dct8"), "T2": (T2["batch"], T2["hw"], "raw")}
 WATERNET_MAC_PER_PX = 1_089_824
@@ -174,6 +197,13 @@ def step_flops(batch: int, h: int, w: int, perceptual: bool = True) -> float:
         else:
             vgg, cin = vgg + 2 * vh * vw * cin * v * 9, v
     return batch * (3 * wn + (3 * vgg if perceptual else 0))
+
+
+def table_chunks(n_items: int, batch: int) -> dict:
+    """Launches of one precache table build over n_items: one of each
+    CLAHE kernel per chunk of ``batch`` items (all variants together)."""
+    chunks = -(-n_items // min(n_items, batch))
+    return {"tile_lut": chunks, "clahe_lut_planes": chunks}
 
 
 def check(cond, msg):
@@ -353,10 +383,12 @@ def train_cli(tag: str, args: list):
 
 
 def check_launches(tag: str, s: dict, want: dict, totals: dict):
-    """``want``: part ("train", "val") -> (launches per step, steps). An
-    epoch's launches must be their product; adds them to ``totals``."""
-    for part, (per_step, n) in want.items():
-        w = {k: v * n for k, v in per_step.items()}
+    """``want``: part ("train", "val") -> (launches per step, steps[,
+    launches outside the steps]). An epoch's launches must be the product
+    plus those outside the steps (a precache table built in the epoch,
+    one launch a chunk); adds them to ``totals``."""
+    for part, (per_step, n, *outside) in want.items():
+        w = {k: v * n + (outside[0].get(k, 0) if outside else 0) for k, v in per_step.items()}
         check(s["launches"][part] == w, f"{tag} epoch {s['epoch']}: {part} launches {s['launches'][part]}, want {w}")
         for k, v in s["launches"][part].items():
             totals[k] = totals.get(k, 0) + v
@@ -380,8 +412,11 @@ def run_cli_training(torch, card, precision: str) -> dict:
     steps = stats[0]["steps"]
     val_steps = -(-t["val_size"] // t["batch"])
     for s in stats:
+        # The val cache is raw with identity-variant precache tables, built
+        # in the first val pass (one chunk): its steps launch nothing.
         check_launches(f"T1 {precision}", s, {"train": (dict(CLAHE_ONLY, dct8_dequant_idct=1), steps),
-                                             "val": (CLAHE_ONLY, val_steps)}, totals)
+                                             "val": (NO_LAUNCH, val_steps, table_chunks(t["val_size"], t["batch"])
+                                                     if s["epoch"] == 1 else {})}, totals)
         flops = step_flops(t["batch"], t["hw"], t["hw"])
         print(json.dumps({
             "run": f"T1 {precision}", "epoch": s["epoch"],
@@ -705,6 +740,157 @@ def run_t4_exact(torch, dev, card) -> None:
         check(line[how]["metrics_equal"], f"T4 exact {how}: metrics differ by rel {line[how]['metrics_max_rel_diff']}")
 
 
+def run_t5(card) -> dict:
+    """T5a: ``python -m waternet_tpu_torch.train --device-cache`` at T5
+    (the raw cache with its precache tables, the CLI's default), then the
+    same with ``--precache-vgg-ref``. The table build launches each CLAHE
+    kernel once per chunk (4 train chunks of 8 variants x 16 items, 1 val
+    chunk in the first val pass); the precached train and val steps launch
+    nothing. Returns the launches of both runs, checked."""
+    from waternet_tpu_torch.data import codec
+    from waternet_tpu_torch.training.trainer import vgg_ref_bytes_per_item
+
+    t = T5
+    n_train = t["synthetic"] - t["val_size"]
+    steps, val_steps = -(-n_train // t["batch"]), -(-t["val_size"] // t["batch"])
+    totals = {}
+    for extra in ([], ["--precache-vgg-ref"]):
+        tag = "T5 " + " ".join(["--device-cache", *extra])
+        stats, config, stdout = train_cli(tag, [
+            "--synthetic", str(t["synthetic"]), "--val-size", str(t["val_size"]),
+            "--epochs", str(t["epochs"]), "--batch-size", str(t["batch"]), "--height", str(t["hw"]),
+            "--width", str(t["hw"]), "--precision", t["precision"], "--device-cache", *extra,
+        ])
+        (build,) = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines() if ln.startswith("cache_build ")]
+        vgg_ref = bool(extra)
+        check(build["precache_histeq"] and build["precache_vgg_ref"] == vgg_ref, f"{tag}: {build}")
+        want_bytes = codec.estimate_cache_bytes(
+            "raw", n_train, t["hw"], t["hw"], precache_histeq=True, precache_vgg_ref=vgg_ref,
+            vgg_ref_bytes_per_item=vgg_ref_bytes_per_item(t["hw"], t["hw"], t["precision"]))
+        check(build["hbm_cache_bytes"] == want_bytes == config["cache_resident_bytes"],
+              f"{tag}: resident {build['hbm_cache_bytes']}, want {want_bytes}")
+        want_build = dict(NO_LAUNCH, **table_chunks(n_train, t["batch"]))
+        check(build["launches"] == want_build, f"{tag}: table build launches {build['launches']}, want {want_build}")
+        for k, v in build["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        check(len(stats) == t["epochs"], f"{tag}: {len(stats)} epoch lines")
+        for s in stats:
+            check(s["steps"] == steps, f"{tag}: {s['steps']} steps")
+            check_launches(tag, s, {"train": (NO_LAUNCH, steps),
+                                    "val": (NO_LAUNCH, val_steps, table_chunks(t["val_size"], t["batch"])
+                                            if s["epoch"] == 1 else {})}, totals)
+        warm = stats[-1]
+        print(json.dumps({
+            "run": tag, "warm_step_ms": warm["step_ms"], "warm_train_images_per_s": warm["train_images_per_s"],
+            "cache_build_sec": build["cache_build_sec"], "hbm_cache_bytes": build["hbm_cache_bytes"],
+            "peak_mem_bytes": warm["peak_mem_bytes"], "table_build_launches": build["launches"],
+            "launches": [s["launches"] for s in stats], "train": warm["train"], "val": warm["val"], "card": card,
+        }), flush=True)
+    return totals
+
+
+def run_t5_exact(torch, dev, card) -> None:
+    """T5b on ``TrainingEngine``, fp32, cuDNN's deterministic algorithms,
+    16 x 112x112, augment on: 4 precached steps against 4 in-step raw-cache
+    steps from the same parameters give the same five input views and the
+    same step metrics, bit for bit (WB and gamma commute with every flip
+    and rot90; CLAHE is read per variant). The card's WB/GC tables equal
+    the CPU port's bit for bit, its CLAHE table is within one level (the
+    float LAB inverse). ``precache_vgg_ref``'s epoch metrics are within
+    rel 1e-4, abs 1e-6 of the in-step ones (its table runs VGG on another
+    batch composition)."""
+    from waternet_tpu_torch.data.synthetic import SyntheticPairs
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.training.trainer import TrainConfig, TrainingEngine, transform_tables
+
+    t = T4_EXACT
+    pairs = SyntheticPairs(t["pairs"], t["hw"], t["hw"], seed=SEED)
+    idx = np.arange(t["pairs"])
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for how in ("in-step", "precached", "precached vgg-ref"):
+            cfg = TrainConfig(batch_size=t["batch"], im_height=t["hw"], im_width=t["hw"], precision="fp32",
+                              cache_codec="raw", precache_histeq=how != "in-step",
+                              precache_vgg_ref=how == "precached vgg-ref", seed=SEED)
+            engine = TrainingEngine(cfg, device=dev)
+            views, metrics = [], []
+            step = engine.train_step_pre
+
+            def captured(*args, step=step, views=views, metrics=metrics, **kw):
+                views.append([v.clone() for v in args[:5]])
+                metrics.append(step(*args, **kw))
+                return metrics[-1]
+
+            engine.train_step_pre = captured
+            engine.cache_dataset(pairs, idx)
+            kernels.reset_launches()
+            epoch = engine.train_epoch_cached(0)
+            torch.cuda.synchronize()
+            runs[how] = {"views": views, "metrics": [{k: v.item() for k, v in m.items()} for m in metrics],
+                         "epoch": epoch, "launches": dict(kernels.LAUNCHES), "pre": engine._cache_pre,
+                         "pair": engine._cache_enc["raw"]}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    want, got = runs["in-step"], runs["precached"]
+    n_steps = t["pairs"] // t["batch"]
+    check(len(want["views"]) == len(got["views"]) == n_steps, f"T5 exact: {len(got['views'])} steps")
+    same = [all(torch.equal(a, b) for a, b in zip(va, vb)) for va, vb in zip(got["views"], want["views"])]
+    rel = max(abs(m[k] - w[k]) / max(abs(w[k]), 1e-30) for m, w in zip(got["metrics"], want["metrics"]) for k in w)
+
+    # The tables: the card's against the CPU port's from the same pairs.
+    raw_cpu = got["pair"][0].cpu()
+    cpu_wb, cpu_gc, cpu_he = transform_tables(raw_cpu, 8, t["batch"])
+    pre = got["pre"]
+    he_diff = (pre["he"].cpu().int() - cpu_he.int()).abs()
+    vgg_diff = {k: abs(runs["precached vgg-ref"]["epoch"][k] - got["epoch"][k]) for k in got["epoch"]}
+    line = {
+        "run": "T5 precached vs in-step raw cache, bit for bit", "steps": n_steps,
+        "views_equal_per_step": same, "metrics_equal": got["metrics"] == want["metrics"],
+        "metrics_max_rel_diff": rel, "launches": {k: runs[k]["launches"] for k in runs},
+        "wb_table_equal_cpu": torch.equal(pre["wb"].cpu(), cpu_wb),
+        "gc_table_equal_cpu": torch.equal(pre["gc"].cpu(), cpu_gc),
+        "he_table_vs_cpu": {"max_abs_diff": he_diff.max().item(),
+                            "share_differing": (he_diff > 0).float().mean().item()},
+        "vgg_ref_epoch": runs["precached vgg-ref"]["epoch"], "in_step_epoch": got["epoch"],
+        "vgg_ref_abs_diff": vgg_diff, "card": card,
+    }
+    print(json.dumps(line), flush=True)
+    check(all(same), "T5 exact: input views differ")
+    check(line["metrics_equal"], f"T5 exact: metrics differ by rel {rel}")
+    check(runs["in-step"]["launches"] == dict(CLAHE_ONLY, tile_lut=n_steps, clahe_lut_planes=n_steps),
+          f"T5 exact: in-step launches {runs['in-step']['launches']}")
+    for how in ("precached", "precached vgg-ref"):
+        check(runs[how]["launches"] == NO_LAUNCH, f"T5 exact {how}: step launches {runs[how]['launches']}")
+    check(line["wb_table_equal_cpu"] and line["gc_table_equal_cpu"], "T5: WB/GC tables differ from the CPU port's")
+    check(line["he_table_vs_cpu"]["max_abs_diff"] <= 1, f"T5: CLAHE table off by {line['he_table_vs_cpu']}")
+    for k, w in got["epoch"].items():
+        v = runs["precached vgg-ref"]["epoch"][k]
+        check(abs(v - w) <= 1e-6 + 1e-4 * abs(w), f"T5: precache_vgg_ref {k} = {v}, in-step {w}")
+
+
+def run_bench(card, *args) -> dict:
+    """T5c: ``python -m waternet_tpu_torch.bench`` as a subprocess; it must
+    exit 0 and end in its contract line, with a finite positive value and
+    ``mfu`` in (0, 1]. Echoes every line; returns the last."""
+    cmd = [sys.executable, "-m", "waternet_tpu_torch.bench", "--device", "cuda", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench {args} failed:\n{proc.stdout}\n{proc.stderr}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    for ln in lines:
+        print("bench " + json.dumps(dict(ln, card=card)), flush=True)
+    last = json.loads(proc.stdout.strip().splitlines()[-1])
+    want = "train_fullres_devcache_images_per_sec" if args else "uieb_train_images_per_sec_per_chip"
+    check(last["metric"] == want, f"bench {args}: last line {last['metric']}")
+    check(math.isfinite(last["value"]) and last["value"] > 0, f"bench {args}: value {last['value']}")
+    check(last["mfu"] is not None and 0 < last["mfu"] <= 1, f"bench {args}: mfu {last['mfu']}")
+    print(json.dumps({"run": "T5 bench " + " ".join(args), "cli_wall_s": wall}), flush=True)
+    return last
+
+
 def main() -> int:
     import torch
 
@@ -719,6 +905,14 @@ def main() -> int:
     from waternet_tpu_torch.utils.synthetic import photo_frames
 
     rng = np.random.default_rng(SEED)
+
+    # Each phase's wall seconds, printed before the summary.
+    phase_s, t_phase = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
 
     # 1. Card and numerics.
     dev = resolve_device("cuda")
@@ -741,6 +935,8 @@ def main() -> int:
         for line in ptxas.read_text().splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print(f"ptxas: {line.strip()}", flush=True)
+
+    lap("1-2 card, build")
 
     # 3. The CLAHE kernels against their plain versions, on the card.
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
@@ -887,6 +1083,8 @@ def main() -> int:
         check(torch.equal(got, want), f"clahe(kernels) != clahe(plain) at {tag}")
         print(f"clahe {tag} {n}x{h}x{w}: kernels == plain, bit for bit", flush=True)
 
+    lap("3-4 CLAHE kernels")
+
     # 5. The inference path answers requests.
     engine = InferenceEngine(weights=WEIGHTS, device_preprocess=True)
     batches = {k: photo_frames(rng, *shape) for k, shape in REQUESTS.items()}
@@ -945,10 +1143,14 @@ def main() -> int:
     del engine, cpu
     torch.cuda.empty_cache()
 
+    lap("5 inference")
+
     # 6. The training slice's kernels against their plain versions.
     summary.update(new_kernels_phase(torch, dev, flush, card, planes))
     del flush, planes
     torch.cuda.empty_cache()
+
+    lap("6 training kernels")
 
     # 7. Training on the card: each run's launches are counted from 0.
     launches["train_T1_fp32"] = run_cli_training(torch, card, "fp32")
@@ -956,9 +1158,22 @@ def main() -> int:
     launches["train_T2_fp32"] = run_t2(torch, dev, card)
     run_t3(torch, dev, card)
 
+    lap("7 T1-T3")
+
     # 8. Host-fed training: T4 and its checks.
     launches["train_T4"] = run_t4(card)
     run_t4_exact(torch, dev, card)
+
+    lap("8 T4")
+
+    # 9. The precache tables (the --device-cache default) and the bench.
+    launches["train_T5"] = run_t5(card)
+    run_t5_exact(torch, dev, card)
+    lap("9 T5a-b")
+    run_bench(card)
+    run_bench(card, "--config", "train_fullres")
+    lap("9 T5c bench")
+    print(json.dumps({"phase_s": phase_s, "total_s": sum(phase_s.values())}), flush=True)
 
     kernels_line = []
     for name in REPLACES:

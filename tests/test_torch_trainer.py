@@ -212,7 +212,7 @@ def test_step_generator_depends_on_seed_epoch_and_batch():
 
 @pytest.mark.parametrize(
     "field",
-    [dict(spatial_shards=2), dict(distill=True), dict(precache_vgg_ref=True)],
+    [dict(spatial_shards=2), dict(distill=True)],
     ids=lambda d: next(iter(d)),
 )
 def test_unported_fields_raise(field):
@@ -221,15 +221,22 @@ def test_unported_fields_raise(field):
 
 
 @pytest.mark.parametrize("requested,env", [("raw", None), ("auto", None), ("auto", "10000000")])
-def test_precache_histeq_with_raw_raises(requested, env, monkeypatch):
+def test_precache_histeq_with_raw_builds_tables(requested, env, monkeypatch):
+    """TrainConfig's default precache_histeq with the raw codec (named, or
+    resolved from ``auto``) builds the WB, GC and 8-variant CLAHE tables,
+    and the cached step dispatches to the cached-pre step."""
     if env:
         monkeypatch.setenv("WATERNET_CACHE_HEADROOM_BYTES", env)
     engine = TrainingEngine(
         TrainConfig(batch_size=2, im_height=16, im_width=16, perceptual_weight=0.0,
                     cache_codec=requested), device="cpu",
     )
-    with pytest.raises(NotImplementedError, match="precache"):
-        engine.cache_dataset(SyntheticPairs(4, 16, 16), np.arange(4))
+    engine.cache_dataset(SyntheticPairs(4, 16, 16), np.arange(4))
+    assert engine.config.cache_codec == "raw"
+    pre = engine._cache_pre
+    assert pre["wb"].shape == pre["gc"].shape == (4, 16, 16, 3) and pre["he"].shape == (8, 4, 16, 16, 3)
+    assert pre["vgg_ref"] is None
+    assert engine.cached_train_step()[0] == engine.train_step_cached_pre
 
 
 def test_auto_resolves_through_the_budgeter(monkeypatch):

@@ -16,6 +16,11 @@ The host-preprocess path augments on the host instead:
 :func:`augment_pair_np` and :func:`advance_augment_rng` are the JAX
 package's numpy functions, drawing from a ``np.random.Generator``, so both
 packages draw alike there.
+
+The precache tables of the device cache hold one CLAHE image per dihedral
+variant: :func:`dihedral_variant_index` maps the draws to that variant and
+:func:`dihedral_apply` makes it, as the JAX package's helpers do
+(data/augment.py:124-180).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from waternet_tpu_torch.data.codec import dihedral_variant_count  # noqa: F401
 from waternet_tpu_torch.utils.tensor import to_device
 
 
@@ -39,12 +45,16 @@ def draw_augment(generator: torch.Generator, n: int):
 
 
 def apply_augment_batch(imgs: torch.Tensor, hflip, vflip, rotk) -> torch.Tensor:
-    """Apply per-image draws to an (N, H, W, C) batch -> float32.
+    """Apply per-image draws to an (N, H, W, C) batch -> float32,
+    contiguous.
 
     Per image: hflip, then vflip, then ``rot90(k)`` over (H, W) (square),
     or 180 degrees iff k == 2 (non-square). Pure data movement, selected
     per image with ``torch.where``, so no value changes and nothing waits
-    on the host."""
+    on the host. ``torch.where`` over the rot90 views would lay the batch
+    out with H and W swapped in memory; the contiguous result gives
+    cuDNN the same layout whatever the draws, so a convolution over it
+    (VGG on the reference) rounds as over any other NHWC batch."""
     dev = imgs.device
     x = imgs.to(torch.float32)
 
@@ -59,8 +69,8 @@ def apply_augment_batch(imgs: torch.Tensor, hflip, vflip, rotk) -> torch.Tensor:
         out = x
         for k in (1, 2, 3):
             out = pick(rotk == k, torch.rot90(x, k, dims=(1, 2)), out)
-        return out
-    return pick(rotk == 2, torch.rot90(x, 2, dims=(1, 2)), x)
+        return out.contiguous()
+    return pick(rotk == 2, torch.rot90(x, 2, dims=(1, 2)), x).contiguous()
 
 
 def augment_pair_batch(generator: torch.Generator, raw: torch.Tensor, ref: torch.Tensor):
@@ -108,3 +118,55 @@ def advance_augment_rng(rng: np.random.Generator, n_items: int) -> None:
         rng.random()
         if rng.random() < 0.5:
             rng.integers(0, 4)
+
+
+# ---------------------------------------------------------------------------
+# Dihedral decomposition of the (hflip, vflip, rotk) composite.
+#
+# The augment composite applied by apply_augment_batch is R^k . V^v . H^h
+# (hflip first). Group identities (held exhaustively against
+# apply_augment_batch by the tests):
+#   square:      R^k . V^v . H^h  ==  R^{(k+2v)%4} . H^{(h+v)%2}
+#   non-square (rot degraded to 180 iff k==2, with r := [k==2]):
+#                ==  V^{(v+r)%2} . H^{(h+r)%2}
+# so every reachable augmentation is one of 8 (square) / 4 (non-square)
+# canonical variants. The precached-CLAHE path stores `histeq` of each
+# canonical variant and selects by this index at step time: CLAHE does not
+# commute with flips (tile interpolation has a half-pixel offset), so the
+# variant table is how it is hoisted out of the step bit-exactly.
+# ---------------------------------------------------------------------------
+
+
+def dihedral_variant_index(hflip, vflip, rotk, square: bool):
+    """Per-image canonical variant index for given draws, as an int64
+    tensor (torch draws) or array (numpy draws).
+
+    square:      refl*4 + rot with refl=(h+v)%2, rot=(k+2v)%4  (0..7)
+    non-square:  hh*2 + vv   with r=[k==2], hh=(h+r)%2, vv=(v+r)%2 (0..3)
+    """
+    if isinstance(hflip, torch.Tensor):
+        h, v, k = hflip.to(torch.int64), vflip.to(torch.int64), rotk.to(torch.int64)
+    else:
+        h, v, k = (np.asarray(a).astype(np.int64) for a in (hflip, vflip, rotk))
+    if square:
+        return (h + v) % 2 * 4 + (k + 2 * v) % 4
+    r = (k == 2) * 1
+    return (h + r) % 2 * 2 + (v + r) % 2
+
+
+def dihedral_apply(imgs, variant: int, square: bool):
+    """Apply canonical variant ``variant`` (a Python int) to an (N, H, W, C)
+    tensor or numpy array: pure data movement, so no value changes."""
+    if isinstance(imgs, torch.Tensor):
+        hflip, vflip = (lambda x: x.flip(2)), (lambda x: x.flip(1))
+        rot = lambda x, k: torch.rot90(x, k, dims=(1, 2))  # noqa: E731
+    else:
+        hflip, vflip = (lambda x: x[:, :, ::-1]), (lambda x: x[:, ::-1])
+        rot = lambda x, k: np.rot90(x, k, axes=(1, 2))  # noqa: E731
+    if square:
+        refl, k = divmod(variant, 4)
+        out = hflip(imgs) if refl else imgs
+        return rot(out, k) if k else out
+    hh, vv = divmod(variant, 2)
+    out = hflip(imgs) if hh else imgs
+    return vflip(out) if vv else out

@@ -199,6 +199,25 @@ def _decode_dct8(payload, height: int, width: int) -> torch.Tensor:
     return dct8_decode_u8(coef, tables["quant"], tables["idct_m"], height, width)
 
 
+def roundtrip(codec: str, u8: np.ndarray, device="cpu") -> np.ndarray:
+    """Host encode -> decode on ``device`` -> host uint8 (the bench's PSNR
+    report). For ``raw`` this is the identity."""
+    u8 = np.asarray(u8, np.uint8)
+    payload = {k: torch.from_numpy(v).to(device) for k, v in encode(codec, u8).items()}
+    return decode(codec, payload, u8.shape[1], u8.shape[2]).cpu().numpy()
+
+
+def psnr_db(a_u8: np.ndarray, b_u8: np.ndarray) -> float:
+    """Peak signal-to-noise ratio between two uint8 arrays, in dB (``inf``
+    for identical arrays)."""
+    a = np.asarray(a_u8, np.float64)
+    b = np.asarray(b_u8, np.float64)
+    mse = float(np.mean((a - b) ** 2))
+    if mse == 0.0:
+        return float("inf")
+    return 10.0 * np.log10(255.0**2 / mse)
+
+
 # ---------------------------------------------------------------------------
 # Preflight budgeter
 # ---------------------------------------------------------------------------

@@ -58,6 +58,20 @@ class Refiner(nn.Module):
         return torch.relu(self.conv3(x))
 
 
+def _conv_flops(h: int, w: int, cin: int, cout: int, k: int) -> int:
+    """2 * MACs of one SAME k x k conv over an (h, w) plane."""
+    return 2 * h * w * cin * cout * k * k
+
+
+def waternet_forward_flops(h: int, w: int) -> int:
+    """Per-image forward FLOPs of WaterNet at (h, w), from the layer specs:
+    the confidence-map generator and the three refiners (the JAX
+    package's ``models/can.py::waternet_forward_flops``)."""
+    cmg = sum(_conv_flops(h, w, cin, cout, k) for cin, cout, k in _CMG_SPEC)
+    refiner = sum(_conv_flops(h, w, cin, cout, k) for cin, cout, k in _REFINER_SPEC)
+    return cmg + 3 * refiner
+
+
 class WaterNet(nn.Module):
     """``model(x, wb, ce, gc)``: four (N, H, W, 3) float tensors in [0, 1]
     (``ce`` is the histogram-equalized variant) -> (N, H, W, 3) float32."""

@@ -84,7 +84,7 @@ def score_no_reference(args, dev) -> dict:
     if args.precision != "fp32":
         raise SystemExit(
             "--raw-dir scores through InferenceEngine, whose bf16 mode is not ported to "
-            "waternet_tpu_torch yet (ROADMAP Queue A, left out of slice 1, item 3); use --precision fp32"
+            "waternet_tpu_torch yet (ROADMAP Queue A item 3, inference completion); use --precision fp32"
         )
     files = sorted(
         p for p in Path(args.raw_dir).glob("*") if p.suffix.lower() in (".png", ".jpg", ".jpeg", ".bmp")

@@ -2,7 +2,7 @@
 
     python -m waternet_tpu_torch.stage_profile [--shape 4x1080x1920] [--reps 3]
     python -m waternet_tpu_torch.stage_profile --train [--shape 8x256x256] \
-        [--precision fp32] [--codec dct8] [--reps 3]
+        [--precision fp32] [--codec dct8] [--precache] [--reps 3]
 
 Inference: runs the stages of ``InferenceEngine(device_preprocess=True).
 enhance`` one after another, as the engine runs them, with CUDA events
@@ -11,7 +11,9 @@ from a seed. ``--train``: one cached train step of ``TrainingEngine``,
 the engine's own, with a CUDA event at each of its stage hooks (gather
 and decode, preprocess, forward, losses, backward, optimizer, metrics),
 perceptual loss on, over ``SyntheticPairs`` (seed 0) after a warm-up
-epoch. Either prints one JSON line: the median
+epoch; ``--precache`` (raw codec) times the cached-pre step over the
+precache tables, whose ``preprocess`` stage is the augment and the
+table gathers. Either prints one JSON line: the median
 device time of each stage, their sum, the host-clock time of the whole
 request or step, and, from ``torch.profiler``, the device's busy and idle
 share over one more and its ten costliest kernels. Needs CUDA.
@@ -114,7 +116,7 @@ def train_main(args) -> None:
 
     n, h, w = (int(v) for v in args.shape.split("x"))
     cfg = TrainConfig(batch_size=n, im_height=h, im_width=w, precision=args.precision,
-                      cache_codec=args.codec, precache_histeq=False)
+                      cache_codec=args.codec, precache_histeq=args.precache)
     engine = TrainingEngine(cfg)
     engine.cache_dataset(SyntheticPairs(4 * n, h, w, seed=0), np.arange(4 * n))
     engine.train_epoch_cached(0)  # warm-up: cuDNN's algorithm search
@@ -137,6 +139,7 @@ def train_main(args) -> None:
     medians = {k: statistics.median(v) for k, v in stage_ms.items()}
     print(json.dumps({
         "train_step": [n, h, w], "precision": args.precision, "codec": args.codec,
+        "precache": engine._cache_pre is not None,
         "card": gpu_card_line(),
         "stage_ms": medians,
         "stage_sum_ms": sum(medians.values()),
@@ -155,6 +158,8 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true", help="profile a cached train step")
     ap.add_argument("--precision", default="fp32", choices=["fp32", "bf16"])
     ap.add_argument("--codec", default="dct8", choices=["raw", "yuv420", "dct8"])
+    ap.add_argument("--precache", action="store_true",
+                    help="with --codec raw: build the precache tables and time the cached-pre step")
     args = ap.parse_args(argv)
     if args.train:
         args.shape = args.shape or "8x256x256"

@@ -15,6 +15,11 @@ pairs. Three ways to feed the steps:
 * host-fed and synchronous (``--workers 0``);
 * ``--device-cache``: the dataset is pinned on the device under
   ``--cache-codec`` and every step gathers and decodes its batch there.
+  With the raw codec the cache build also precomputes WB, GC and CLAHE
+  of every dihedral augmentation variant (the CLAHE kernels, one launch
+  per chunk of items), so the steps run no classical transform
+  (``--no-precache-histeq`` keeps them in the step); ``--precache-vgg-ref``
+  also precomputes the perceptual term's reference features.
 
 By default (``--device-preprocess``) the host ships raw uint8 pairs and
 augment + WB/GC/CLAHE run in the step, on the CLAHE kernels;
@@ -26,7 +31,9 @@ so either package loads it. Per epoch it prints the JAX CLI's lines and
 one ``epoch_stats {...}`` JSON line: images/s, step ms (the device
 synchronised at the epoch's end), peak device memory, each kernel's
 launches in the train and val passes and, host-fed, the ``pipeline_*``
-keys (stall pct, per-stage ms, transfer bytes per batch).
+keys (stall pct, per-stage ms, transfer bytes per batch). With
+``--device-cache`` a ``cache_build {...}`` JSON line comes first: the
+build's seconds, resident bytes and kernel launches.
 
 Runs on CUDA unless ``--device cpu`` is given.
 """
@@ -77,7 +84,13 @@ def parse_args(argv=None):
     p.add_argument("--cache-report", action="store_true",
                    help="Print the device-cache budget table for this dataset and size, and exit.")
     p.add_argument("--no-precache-histeq", action="store_true",
-                   help="Keep WB/GC/CLAHE in the step (required with the raw codec: the precache tables are not ported).")
+                   help="With --device-cache: keep WB/GC/CLAHE inside the step instead of precomputing them (CLAHE per "
+                   "dihedral augmentation variant) at cache-build time.")
+    p.add_argument("--precache-vgg-ref", action="store_true",
+                   help="With --device-cache: also precompute the perceptual term's VGG features of every dihedral ref "
+                   "variant at cache-build time (the ref branch carries no gradient), so the step runs no VGG forward "
+                   "on the reference. Needs the raw codec, the histeq precache and the perceptual term; numerics "
+                   "equal the in-step term within float tolerance.")
     p.add_argument("--no-shuffle", action="store_true", help="No train shuffling.")
     p.add_argument("--no-augment", action="store_true", help="No flips/rot90 augmentation.")
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
@@ -94,6 +107,10 @@ def parse_args(argv=None):
         p.error("--cache-codec requires --device-cache")
     if args.device_cache and args.host_preprocess:
         p.error("--device-cache requires device preprocessing")
+    if args.precache_vgg_ref and not (args.device_cache or args.cache_report):
+        # An ignored A/B flag must fail loudly, not measure the wrong path;
+        # cache_dataset refuses the other combinations.
+        p.error("--precache-vgg-ref requires --device-cache")
     return args
 
 
@@ -110,6 +127,7 @@ def main(argv=None) -> int:
         VAL_METRICS_NAMES,
         TrainConfig,
         TrainingEngine,
+        vgg_ref_bytes_per_item,
     )
     from waternet_tpu_torch.utils.checkpoint import save_weights
     from waternet_tpu_torch.utils.device import resolve_device
@@ -134,6 +152,7 @@ def main(argv=None) -> int:
         perceptual_weight=0.0 if args.no_perceptual else 0.05,
         host_preprocess=args.host_preprocess,
         precache_histeq=not args.no_precache_histeq,
+        precache_vgg_ref=args.precache_vgg_ref,
         cache_codec=args.cache_codec,
     )
     if args.synthetic:
@@ -153,6 +172,8 @@ def main(argv=None) -> int:
         rows = cachecodec.budget_report(
             len(train_idx), args.height, args.width, headroom=headroom,
             precache_histeq=config.precache_histeq,
+            precache_vgg_ref=config.precache_vgg_ref,
+            vgg_ref_bytes_per_item=vgg_ref_bytes_per_item(args.height, args.width, args.precision),
         )
         for line in cachecodec.report_lines(rows, headroom):
             print(line)
@@ -166,7 +187,21 @@ def main(argv=None) -> int:
     vgg_params = None if args.no_perceptual else resolve_vgg_params(args.vgg_weights)
     engine = TrainingEngine(config, params=params, vgg_params=vgg_params, device=dev)
     if args.device_cache:
-        engine.cache_dataset(dataset, train_idx)
+        kernels.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        try:
+            engine.cache_dataset(dataset, train_idx)
+        except ValueError as e:  # the cache's rules, e.g. what --precache-vgg-ref needs
+            raise SystemExit(f"--device-cache: {e}")
+        sync()
+        print("cache_build " + json.dumps({
+            "cache_build_sec": time.perf_counter() - t0, "cache_codec": engine.config.cache_codec,
+            "hbm_cache_bytes": engine.cache_resident_bytes(),
+            "precache_histeq": engine._cache_pre is not None,
+            "precache_vgg_ref": engine._cache_pre is not None and engine._cache_pre["vgg_ref"] is not None,
+            "launches": dict(kernels.LAUNCHES),
+        }), flush=True)
         print(
             f"Device cache: codec={engine.config.cache_codec} "
             f"resident={engine.cache_resident_bytes()} bytes "
@@ -264,6 +299,8 @@ def main(argv=None) -> int:
         "device_preprocess": not config.host_preprocess,
         "device": str(dev),
         "cache_codec": engine.config.cache_codec if args.device_cache else None,
+        "precache_histeq": config.precache_histeq,
+        "precache_vgg_ref": config.precache_vgg_ref,
         "cache_resident_bytes": engine.cache_resident_bytes(),
     }, indent=4))
     print(f"Metrics and weights saved to {savedir}")

@@ -14,7 +14,14 @@ step, the same step either way:
 * **device cache**: ``cache_dataset`` pins the dataset on the device
   under a codec (``raw``, ``yuv420`` or ``dct8``, :mod:`waternet_tpu_torch.
   data.codec`); every step gathers its batch by index there and decodes
-  it there. The host sends indices only.
+  it there. The host sends indices only. With the raw codec and
+  ``precache_histeq`` (the default) the cache build also computes WB and
+  GC of every item and CLAHE of each of its dihedral variants (the CLAHE
+  kernels, one launch per chunk of items), so the steady-state step
+  (:meth:`TrainingEngine.train_step_cached_pre`) gathers those and runs
+  no classical transform; ``precache_vgg_ref`` adds VGG19's relu5_4
+  features of every reference variant, so the perceptual term runs no
+  VGG forward on the reference either.
 
 By default (device preprocessing) a step gets uint8 (raw, ref) batches
 and runs augment, WB/GC/CLAHE (the CLAHE kernels), the WaterNet forward
@@ -43,10 +50,9 @@ preprocess, forward, losses, backward, optimizer, metrics);
 nothing.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item rather than being ignored): the precache tables (``precache_histeq``
-with the raw codec, ``precache_vgg_ref``), spatial sharding, and
-distillation. Mid-epoch resume and the resilience controls of the JAX
-epochs (``start_batch``, ``carry``, ``control``) are not ported either.
+item rather than being ignored): spatial sharding and distillation.
+Mid-epoch resume and the resilience controls of the JAX epochs
+(``start_batch``, ``carry``, ``control``) are not ported either.
 """
 
 from __future__ import annotations
@@ -60,13 +66,24 @@ import numpy as np
 import torch
 
 from waternet_tpu_torch.data import codec as cachecodec
-from waternet_tpu_torch.data.augment import advance_augment_rng, augment_pair_np
+from waternet_tpu_torch.data.augment import (
+    advance_augment_rng,
+    apply_augment_batch,
+    augment_pair_np,
+    dihedral_apply,
+    dihedral_variant_count,
+    dihedral_variant_index,
+    draw_augment,
+)
 from waternet_tpu_torch.data.batching import epoch_permutation
 from waternet_tpu_torch.data.pipeline import OrderedPipeline, PipelineStats
 from waternet_tpu_torch.models import WaterNet
-from waternet_tpu_torch.models.vgg import VGG19Features, init_vgg_params
+from waternet_tpu_torch.models.vgg import VGG19Features, imagenet_normalize, init_vgg_params
+from waternet_tpu_torch.ops.clahe import histeq
 from waternet_tpu_torch.ops.fused import fused_train_preprocess
+from waternet_tpu_torch.ops.gamma import gamma_correction
 from waternet_tpu_torch.ops.transform import transform_np
+from waternet_tpu_torch.ops.wb import white_balance
 from waternet_tpu_torch.training.losses import PERCEPTUAL_WEIGHT, mse_255, perceptual_loss
 from waternet_tpu_torch.training.metrics import psnr as psnr_fn
 from waternet_tpu_torch.training.metrics import ssim as ssim_fn
@@ -97,8 +114,15 @@ class TrainConfig:
     host_preprocess: bool = False
     spatial_shards: int = 1
     # Precompute WB/GC and the dihedral CLAHE table at cache build (raw
-    # codec only; lossy codecs ignore it, as in the JAX package).
+    # codec only; lossy codecs ignore it, as in the JAX package). Bit-exact:
+    # WB and gamma commute with every flip/rot90 (global statistics are
+    # permutation-invariant, gamma is pointwise), and CLAHE, which does not
+    # commute, is stored for each of the 8 (square; 4 non-square) canonical
+    # augmentations and selected per image by the step's own draws.
     precache_histeq: bool = True
+    # Also precompute VGG19's relu5_4 features of every reference variant
+    # (the reference branch carries no gradient). Requires precache_histeq,
+    # device preprocessing and the perceptual term.
     precache_vgg_ref: bool = False
     distill: bool = False
     student_width: int = 24
@@ -111,7 +135,6 @@ class TrainConfig:
         missing = {
             "spatial_shards > 1": (self.spatial_shards > 1, "Queue A item 8 (multi-GPU)"),
             "distill": (self.distill, "Queue A item 7 (fast tier)"),
-            "precache_vgg_ref": (self.precache_vgg_ref, "Queue A item 5 (precache tables)"),
         }
         for name, (on, item) in missing.items():
             if on:
@@ -144,6 +167,39 @@ def step_generator(seed: int, epoch: int, batch: int) -> torch.Generator:
 
 def _no_stamp(stage: str) -> None:
     """The steps' default ``stamp``: nothing."""
+
+
+def vgg_ref_bytes_per_item(h: int, w: int, precision: str) -> int:
+    """Bytes of one VGG19 relu5_4 feature map (H/16 x W/16 x 512) in the
+    compute dtype: what precache_vgg_ref pins per item and variant."""
+    return (h // 16) * (w // 16) * 512 * (2 if precision == "bf16" else 4)
+
+
+@torch.no_grad()
+def transform_tables(raw_u8: torch.Tensor, n_var: int, chunk: int):
+    """The precache tables of an (N, H, W, 3) uint8 tensor, built on its
+    device: ``(wb, gc, he)``, uint8, ``wb``/``gc`` (N, H, W, 3) and ``he``
+    (n_var, N, H, W, 3) with ``he[v, i]`` = histeq of item i under dihedral
+    variant v (``n_var=1``: the identity only, for eval).
+
+    Works in chunks of ``chunk`` items; each chunk's variants are stacked
+    on the batch axis into one ``histeq`` call, so one launch of each CLAHE
+    kernel covers ``n_var * chunk`` images. The transforms get float32
+    inputs, as in the step, and return exact uint8 values, so the uint8
+    tables lose nothing."""
+    n, h, w, c = raw_u8.shape
+    square = h == w
+    wb = torch.empty_like(raw_u8)
+    gc = torch.empty_like(raw_u8)
+    he = torch.empty((n_var, n, h, w, c), dtype=torch.uint8, device=raw_u8.device)
+    for start in range(0, n, chunk):
+        part = raw_u8[start : start + chunk].to(torch.float32)
+        stop = start + part.shape[0]
+        wb[start:stop] = white_balance(part).to(torch.uint8)
+        gc[start:stop] = gamma_correction(part).to(torch.uint8)
+        stacked = torch.cat([dihedral_apply(part, v, square) for v in range(n_var)])
+        he[:, start:stop] = histeq(stacked).to(torch.uint8).reshape(n_var, -1, h, w, c)
+    return wb, gc, he
 
 
 def _waternet_state_dict(params) -> dict:
@@ -194,6 +250,7 @@ class TrainingEngine:
         self.optimizer, self.scheduler = make_optimizer(self.model.parameters(), config)
         self._feeder = DeviceFeeder(self.device)
         self._cache_enc = None
+        self._cache_pre = None
         self._val_cache = None
 
     # ------------------------------------------------------------------
@@ -205,7 +262,7 @@ class TrainingEngine:
             return contextlib.nullcontext()
         return torch.autocast(self.device.type, dtype=torch.bfloat16)
 
-    def _losses_and_out(self, x, wbn, hen, gcn, refn, mask, stamp=_no_stamp):
+    def _losses_and_out(self, x, wbn, hen, gcn, refn, mask, stamp=_no_stamp, ref_feats=None):
         with self._autocast():
             out = self.model(x, wbn, hen, gcn)
         out = out.to(torch.float32)
@@ -215,7 +272,7 @@ class TrainingEngine:
         loss = mse
         if self.config.perceptual_weight != 0.0:
             with self._autocast():
-                perc = perceptual_loss(self.vgg, out, refn, mask)
+                perc = perceptual_loss(self.vgg, out, refn, mask, ref_feats=ref_feats)
             aux["perceptual_loss"] = perc
             loss = self.config.perceptual_weight * perc + mse
         stamp("losses")
@@ -245,11 +302,12 @@ class TrainingEngine:
         stamp("preprocess")
         return self.train_step_pre(*views, n_real, stamp=stamp)
 
-    def train_step_pre(self, x, wbn, hen, gcn, refn, n_real: int, stamp=_no_stamp) -> dict:
+    def train_step_pre(self, x, wbn, hen, gcn, refn, n_real: int, stamp=_no_stamp, ref_feats=None) -> dict:
         """One optimizer step on the five float32 [0, 1] views, in the
-        network's input order; no transform runs inside it."""
+        network's input order; no transform runs inside it. ``ref_feats``
+        (precache_vgg_ref) stands in for VGG's features of ``refn``."""
         mask = self._mask(x.shape[0], n_real)
-        loss, out, aux = self._losses_and_out(x, wbn, hen, gcn, refn, mask, stamp)
+        loss, out, aux = self._losses_and_out(x, wbn, hen, gcn, refn, mask, stamp, ref_feats)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         stamp("backward")
@@ -265,24 +323,30 @@ class TrainingEngine:
         return self.eval_step_pre(*fused_train_preprocess(raw_u8, ref_u8, None), n_real)
 
     @torch.no_grad()
-    def eval_step_pre(self, x, wbn, hen, gcn, refn, n_real: int) -> dict:
+    def eval_step_pre(self, x, wbn, hen, gcn, refn, n_real: int, ref_feats=None) -> dict:
         mask = self._mask(x.shape[0], n_real)
-        _, out, aux = self._losses_and_out(x, wbn, hen, gcn, refn, mask)
+        _, out, aux = self._losses_and_out(x, wbn, hen, gcn, refn, mask, ref_feats=ref_feats)
         return self._metrics(out, refn, aux, mask)
 
     # ------------------------------------------------------------------
     # The device cache
     # ------------------------------------------------------------------
 
+    def _precaching(self) -> bool:
+        return self.config.precache_histeq and not self.config.host_preprocess
+
     def _preflight_cache_budget(self, n_items: int) -> str:
-        """Size the cache against the device's headroom before anything is
-        pinned; resolve ``auto`` to a codec (written back into the config,
-        as the JAX trainer does). Raises ``CacheBudgetError``."""
+        """Size the cache, its precache tables included, against the
+        device's headroom before anything is pinned; resolve ``auto`` to a
+        codec (written back into the config, as the JAX trainer does).
+        Raises ``CacheBudgetError``."""
         h, w = self.config.im_height, self.config.im_width
         row = cachecodec.choose_codec(
             self.config.cache_codec, n_items, h, w,
             headroom=cachecodec.resolve_headroom(self.device),
-            precache_histeq=self.config.precache_histeq,
+            precache_histeq=self._precaching(),
+            precache_vgg_ref=self.config.precache_vgg_ref,
+            vgg_ref_bytes_per_item=vgg_ref_bytes_per_item(h, w, self.config.precision),
         )
         self.config.cache_codec = row["codec"]
         return row["codec"]
@@ -300,25 +364,79 @@ class TrainingEngine:
         """Pin the (raw, ref) pairs of ``indices`` on the device under
         ``config.cache_codec``, after the preflight budgeter (which resolves
         ``auto``). Lossy codecs pin the encoded planes; each step decodes
-        only its batch."""
-        if self.config.host_preprocess:
+        only its batch. The raw codec with ``precache_histeq`` also builds
+        the precache tables on the device (and, with ``precache_vgg_ref``,
+        the VGG feature table); the JAX package's rules and messages."""
+        cfg = self.config
+        if cfg.host_preprocess:
             raise ValueError("the device cache requires device preprocessing (host_preprocess=False)")
+        if cfg.precache_vgg_ref:
+            if cfg.cache_codec != "raw":
+                # Built over decoded pixels, the table would outgrow the raw
+                # cache and defeat the codec.
+                raise ValueError(
+                    "precache_vgg_ref requires cache_codec='raw': the feature table is "
+                    "precomputed from the raw-resident ref and would defeat a compressed cache"
+                )
+            if not (cfg.precache_histeq and cfg.perceptual_weight != 0.0):
+                # It rides the CLAHE table's variant index, and precaches a
+                # term that must be in the loss: an ignored flag would let an
+                # A/B run measure nothing.
+                raise ValueError(
+                    "precache_vgg_ref requires precache_histeq=True, host_preprocess=False, "
+                    "and a nonzero perceptual_weight"
+                )
         codec = self._preflight_cache_budget(len(indices))
-        if codec == "raw" and self.config.precache_histeq:
-            raise NotImplementedError(
-                "precache_histeq with the raw codec: the precache tables are "
-                "not ported to waternet_tpu_torch yet (ROADMAP Queue A item 5); "
-                "pass precache_histeq=False (--no-precache-histeq) or a lossy codec"
-            )
-        self._cache_enc = None  # free the old cache before pinning the new
+        self._cache_enc = self._cache_pre = None  # free the old cache before pinning the new
         self._cache_enc = self._pin_pairs(dataset, indices, codec)
         self._cache_len = len(indices)
+        if codec == "raw" and self._precaching():
+            h, w = self._cache_enc["raw"].shape[2:4]
+            self._cache_pre = self._pre_tables(self._cache_enc["raw"], dihedral_variant_count(h, w))
+
+    def _pre_tables(self, pair: torch.Tensor, n_var: int) -> dict:
+        """The precache tables of a pinned (2, N, H, W, 3) raw pair tensor,
+        with ``n_var`` variants (1 for eval); what the cached-pre steps
+        take. ``vgg_ref`` is None without precache_vgg_ref."""
+        chunk = min(pair.shape[1], max(1, self.config.batch_size))
+        wb, gc, he = transform_tables(pair[0], n_var, chunk)
+        vgg_ref = None
+        if self.config.precache_vgg_ref and self.vgg is not None:
+            vgg_ref = self._vgg_ref_table(pair[1], n_var, chunk)
+        return {"pair": pair, "wb": wb, "gc": gc, "he": he, "vgg_ref": vgg_ref}
+
+    @torch.no_grad()
+    def _vgg_ref_table(self, ref_u8: torch.Tensor, n_var: int, chunk: int) -> torch.Tensor:
+        """[variant, item] VGG19 relu5_4 features of an (N, H, W, 3) uint8
+        reference tensor, under the engine's autocast, stored in the
+        compute dtype (the forward's values, so nothing is lost). VGG runs
+        on pieces of the step's batch size: at the step's shapes cuDNN picks
+        the step's algorithms, so a full batch's features are the in-step
+        ones (another batch composition rounds them differently)."""
+        n, h, w, _ = ref_u8.shape
+        table = None
+        for start in range(0, n, chunk):
+            part = ref_u8[start : start + chunk].to(torch.float32) / 255.0
+            stacked = torch.cat([dihedral_apply(part, v, h == w) for v in range(n_var)])
+            with self._autocast():
+                feats = torch.cat([self.vgg(imagenet_normalize(piece))
+                                   for piece in stacked.split(self.config.batch_size)])
+            dtype = torch.bfloat16 if self.config.precision == "bf16" else torch.float32
+            feats = feats.to(dtype).reshape(n_var, part.shape[0], *feats.shape[1:])
+            if table is None:
+                table = torch.empty((n_var, n, *feats.shape[2:]), dtype=feats.dtype, device=feats.device)
+            table[:, start : start + part.shape[0]] = feats
+        return table
 
     def cache_resident_bytes(self) -> Optional[int]:
-        """Bytes pinned by the training cache, or None without one."""
+        """Bytes pinned by the training cache, its precache tables included,
+        or None without one."""
         if self._cache_enc is None:
             return None
-        return sum(t.numel() * t.element_size() for t in self._cache_enc.values())
+        tensors = list(self._cache_enc.values())
+        if self._cache_pre is not None:
+            tensors += [self._cache_pre[k] for k in ("wb", "gc", "he", "vgg_ref")]
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
     def _gather_decode(self, enc: dict, codec: str, idx: torch.Tensor):
         """Gather the batch ``idx`` of raw and ref from a pinned cache and
@@ -343,15 +461,61 @@ class TrainingEngine:
     def cached_train_step(self):
         """(step_fn, cache_args) for the current cache: callers append
         ``(idx, generator, n_real)``. The one dispatch point of the cached
-        step, which train_epoch_cached and benchmarks share."""
+        step, which train_epoch_cached and benchmarks share: the cached-pre
+        step when the precache tables exist, the codec step otherwise."""
         if self._cache_enc is None:
             raise RuntimeError("call cache_dataset() before cached_train_step()")
+        if self._cache_pre is not None:
+            return self.train_step_cached_pre, (self._cache_pre,)
         return self.train_step_cached_codec, (self._cache_enc,)
 
     def train_step_cached_codec(self, enc, idx, generator, n_real, stamp=_no_stamp):
         raw_u8, ref_u8 = self._gather_decode(enc, self.config.cache_codec, idx)
         stamp("gather_decode")
         return self.train_step(raw_u8, ref_u8, generator, n_real, stamp)
+
+    @staticmethod
+    def _gather_pre(cache: dict, idx: torch.Tensor):
+        """raw, ref, wb and gc of the batch ``idx`` from precache tables,
+        as float32 uint8 values."""
+        pair = cache["pair"].index_select(1, idx).to(torch.float32)
+        return (pair[0], pair[1], *(cache[k].index_select(0, idx).to(torch.float32) for k in ("wb", "gc")))
+
+    def train_step_cached_pre(self, cache, idx, generator, n_real, stamp=_no_stamp):
+        """The cached step with the transforms hoisted out (the JAX
+        trainer's ``_cached_pre_body``): gather raw, ref, WB and GC, augment
+        all four with the draws ``fused_train_preprocess`` would make (one
+        ``draw_augment``), then gather each image's CLAHE (and, with
+        precache_vgg_ref, its reference features) from the table row of its
+        dihedral variant. No classical transform runs; the step equals the
+        in-step raw-cache step bit for bit."""
+        raw, ref, wb, gc = self._gather_pre(cache, idx)
+        stamp("gather_decode")
+        if self.config.augment and generator is not None:
+            square = self.config.im_height == self.config.im_width
+            hflip, vflip, rotk = draw_augment(generator, idx.shape[0])
+            variant = dihedral_variant_index(hflip, vflip, rotk, square)
+            # One copy to the device for all the draws.
+            draws = to_device(torch.stack([t.to(torch.int64) for t in (hflip, vflip, rotk, variant)]), self.device)
+            hflip, vflip, rotk, variant = draws[0].bool(), draws[1].bool(), draws[2], draws[3]
+            raw, ref, wb, gc = (apply_augment_batch(t, hflip, vflip, rotk) for t in (raw, ref, wb, gc))
+        else:
+            variant = torch.zeros_like(idx)
+        he = cache["he"][variant, idx].to(torch.float32)
+        ref_feats = None if cache["vgg_ref"] is None else cache["vgg_ref"][variant, idx]
+        stamp("preprocess")
+        return self.train_step_pre(raw / 255.0, wb / 255.0, he / 255.0, gc / 255.0, ref / 255.0,
+                                   n_real, stamp=stamp, ref_feats=ref_feats)
+
+    @torch.no_grad()
+    def eval_step_cached_pre(self, cache, idx, n_real):
+        """Eval over precache tables: no augmentation, so every image reads
+        the identity variant's row 0."""
+        raw, ref, wb, gc = self._gather_pre(cache, idx)
+        he = cache["he"][0].index_select(0, idx).to(torch.float32)
+        ref_feats = None if cache["vgg_ref"] is None else cache["vgg_ref"][0].index_select(0, idx)
+        return self.eval_step_pre(raw / 255.0, wb / 255.0, he / 255.0, gc / 255.0, ref / 255.0,
+                                  n_real, ref_feats=ref_feats)
 
     @staticmethod
     def _epoch_means(per_step: list, names) -> dict:
@@ -378,22 +542,28 @@ class TrainingEngine:
     def eval_epoch_cached(self, dataset=None, indices=None) -> dict:
         """Eval over a device cache. With ``dataset``/``indices``: a val
         cache of exactly those pairs, always raw (kept until another dataset
-        or index set is asked for), with WB/GC/CLAHE run in the step. With
-        ``dataset=None``: the train cache, decoded in the step."""
+        or index set is asked for), with identity-variant precache tables
+        when ``precache_histeq`` is on (built with the val cache, whatever
+        the train cache's codec, as in the JAX trainer), else WB/GC/CLAHE
+        in the step. With ``dataset=None``: the train cache, through its
+        own tables' variant 0 or decoded in the step."""
         if dataset is not None:
             ids = tuple(int(i) for i in indices)
             cached = self._val_cache
             if cached is None or cached[0] is not dataset or cached[1] != ids:
                 self._val_cache = None
-                self._val_cache = (dataset, ids, self._pin_pairs(dataset, ids, "raw"))
-            enc, codec, n = self._val_cache[2], "raw", len(ids)
+                enc = self._pin_pairs(dataset, ids, "raw")
+                pre = self._pre_tables(enc["raw"], 1) if self._precaching() else None
+                self._val_cache = (dataset, ids, enc, pre)
+            enc, pre, codec, n = self._val_cache[2], self._val_cache[3], "raw", len(ids)
         else:
             if self._cache_enc is None:
                 raise RuntimeError("no cached dataset for eval_epoch_cached()")
-            enc, codec, n = self._cache_enc, self.config.cache_codec, self._cache_len
+            enc, pre, codec, n = self._cache_enc, self._cache_pre, self.config.cache_codec, self._cache_len
         self.model.eval()
         per_step = [
-            self.eval_step(*self._gather_decode(enc, codec, idx), n_real)
+            self.eval_step_cached_pre(pre, idx, n_real) if pre is not None
+            else self.eval_step(*self._gather_decode(enc, codec, idx), n_real)
             for idx, n_real in self._cached_index_batches(n, epoch=0, shuffle=False)
         ]
         self.model.train()

@@ -28,9 +28,10 @@ def ten2arr(ten: torch.Tensor) -> np.ndarray:
 def to_device(t: torch.Tensor, device) -> torch.Tensor:
     """Copy a host tensor to ``device`` without making the host wait for
     the device: to CUDA through pinned memory, asynchronously (a copy from
-    pageable memory would wait for the stream's queued work)."""
+    pageable memory would wait for the stream's queued work). A tensor
+    already on a CUDA device is moved as is."""
     device = torch.device(device)
-    if device.type != "cuda":
+    if device.type != "cuda" or t.is_cuda:
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
 
