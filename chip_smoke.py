@@ -88,6 +88,27 @@ Phases; any failure exits non-zero, and nothing below is caught:
    1e-4, abs 1e-6 of the in-step one. Then ``python -m
    waternet_tpu_torch.bench`` at its defaults and with ``--config
    train_fullres``: each exits 0 and ends in its contract line with a
+   finite positive value and ``mfu`` in (0, 1];
+10. V, video: cv2's video I/O probed (a writer of each fourcc, avc1
+   and mp4v, on a 1080p clip, read back; the "Video I/O" part of
+   ``cv2.getBuildInformation()``); a 26-frame 1080x1920 clip panning
+   over one seeded ``photo_frames`` frame, written to a temp mp4
+   (mp4v where it opens, else avc1); ``enhance_video_stream`` at
+   batch 4 with ``prefetch=2`` on a bf16 ``InferenceEngine(
+   device_preprocess=True)``: 26 frames in order, each CLAHE kernel
+   launched once per batch (7, the tail padded), the frames equal to
+   ``engine.enhance`` on the same decoded, padded batches bit for bit,
+   and a warm pass's frames/s. Then R1 in bf16 (p50 of 5, peak memory,
+   beside phase 5's fp32 R1), a bf16 request on the card against the CPU
+   port's bf16 engine (1 x 96x128, within 3 levels and more than one on at
+   most 1% of values), and how long ``enhance_async`` takes to return
+   while the previous R1 batch runs; ``python -m
+   waternet_tpu_torch.inference`` on the clip (``--device-preprocess
+   --precision bf16 --batch-size 4 --show-split --workers 2``): 26
+   frames at 1920x1080 written, its ``video_ingest`` line; the flicker
+   index of the input and of the enhanced clip, under the pan's true
+   flow and the identity flow; ``python -m
+   waternet_tpu_torch.bench --config video``, its contract line with a
    finite positive value and ``mfu`` in (0, 1].
 
 The last lines are the ``{"kernels": [...]}`` summary, the card line and
@@ -150,6 +171,12 @@ NO_LAUNCH = dict.fromkeys(CLAHE_ONLY, 0)
 T5 = dict(synthetic=64, val_size=8, epochs=2, batch=16, hw=112, precision="bf16")
 # The training batches the CLAHE kernels are also held at: (batch, side, codec).
 TRAIN_PLANES = {"T1": (T1["batch"], T1["hw"], "dct8"), "T2": (T2["batch"], T2["hw"], "raw")}
+# V: the video clip (26 is not a multiple of 4: the tail batch is padded),
+# and the shape a bf16 request is held against the CPU port's at.
+# The clip pans over one seeded photo frame by (dy, dx) = pan pixels a
+# frame, so the true backward flow of every frame pair is (dx, dy).
+VIDEO = dict(frames=26, h=1080, w=1920, batch=4, fps=25, pan=(2, 4))
+BF16_VS_CPU = (1, 96, 128)
 WATERNET_MAC_PER_PX = 1_089_824
 VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
            512, 512, 512, 512, "M", 512, 512, 512, 512)
@@ -870,9 +897,14 @@ def run_t5_exact(torch, dev, card) -> None:
         check(abs(v - w) <= 1e-6 + 1e-4 * abs(w), f"T5: precache_vgg_ref {k} = {v}, in-step {w}")
 
 
+BENCH_METRIC = {(): "uieb_train_images_per_sec_per_chip",
+                ("--config", "train_fullres"): "train_fullres_devcache_images_per_sec",
+                ("--config", "video"): "video_1080p_frames_per_sec_per_chip"}
+
+
 def run_bench(card, *args) -> dict:
-    """T5c: ``python -m waternet_tpu_torch.bench`` as a subprocess; it must
-    exit 0 and end in its contract line, with a finite positive value and
+    """``python -m waternet_tpu_torch.bench`` as a subprocess; it must exit
+    0 and end in its contract line, with a finite positive value and
     ``mfu`` in (0, 1]. Echoes every line; returns the last."""
     cmd = [sys.executable, "-m", "waternet_tpu_torch.bench", "--device", "cuda", *args]
     t0 = time.perf_counter()
@@ -883,12 +915,248 @@ def run_bench(card, *args) -> dict:
     for ln in lines:
         print("bench " + json.dumps(dict(ln, card=card)), flush=True)
     last = json.loads(proc.stdout.strip().splitlines()[-1])
-    want = "train_fullres_devcache_images_per_sec" if args else "uieb_train_images_per_sec_per_chip"
+    want = BENCH_METRIC[args]
     check(last["metric"] == want, f"bench {args}: last line {last['metric']}")
     check(math.isfinite(last["value"]) and last["value"] > 0, f"bench {args}: value {last['value']}")
     check(last["mfu"] is not None and 0 < last["mfu"] <= 1, f"bench {args}: mfu {last['mfu']}")
-    print(json.dumps({"run": "T5 bench " + " ".join(args), "cli_wall_s": wall}), flush=True)
+    print(json.dumps({"run": "bench " + " ".join(args), "cli_wall_s": wall}), flush=True)
     return last
+
+
+def probe_video_io(d: Path) -> str:
+    """V1: open a writer of each fourcc on a 1080p clip, write and read
+    back two frames; print what opened and cv2's "Video I/O" build
+    section. Returns the fourcc the test clip is written with (mp4v, as
+    the tests write theirs, else avc1); fails if neither opens."""
+    import cv2
+
+    v = VIDEO
+    probe = {}
+    frame = np.zeros((v["h"], v["w"], 3), np.uint8)
+    for fourcc in ("avc1", "mp4v"):
+        path = d / f"probe_{fourcc}.mp4"
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter.fourcc(*fourcc), v["fps"], (v["w"], v["h"]))
+        opened = writer.isOpened()
+        if opened:
+            for _ in range(2):
+                writer.write(frame)
+        writer.release()
+        read = 0
+        if opened:
+            cap = cv2.VideoCapture(str(path))
+            while cap.read()[0]:
+                read += 1
+            cap.release()
+        probe[fourcc] = {"opened": opened, "frames_read": read}
+    info = cv2.getBuildInformation()
+    section = info[info.find("Video I/O"):]
+    section = section[: section.find("\n\n")] if "\n\n" in section else section[:1200]
+    print(json.dumps({"cv2_video_probe": probe, "cv2_version": cv2.__version__}), flush=True)
+    print("cv2 build, " + section.strip(), flush=True)
+    usable = [k for k in ("mp4v", "avc1") if probe[k]["opened"] and probe[k]["frames_read"] == 2]
+    check(usable, f"no mp4 encoder of cv2 opens and reads back: {probe}")
+    return usable[0]
+
+
+def write_clip(path: Path, fourcc: str, rng) -> None:
+    """V2: VIDEO["frames"] 1080x1920 crops of one seeded ``photo_frames``
+    frame, panning by VIDEO["pan"] a frame, into an mp4."""
+    import cv2
+
+    from waternet_tpu_torch.utils.synthetic import photo_frames
+
+    v = VIDEO
+    (sy, sx), n = v["pan"], v["frames"]
+    big = photo_frames(rng, 1, v["h"] + n * sy, v["w"] + n * sx)[0]
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter.fourcc(*fourcc), v["fps"], (v["w"], v["h"]))
+    check(writer.isOpened(), f"cv2 could not open a {fourcc} writer for the test clip")
+    for t in range(n):
+        writer.write(np.ascontiguousarray(big[t * sy:t * sy + v["h"], t * sx:t * sx + v["w"]]))
+    writer.release()
+
+
+def read_frames(path: Path) -> list:
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    out = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        out.append(f)
+    cap.release()
+    return out
+
+
+def stream_pass(engine, clip: Path, prefetch: int = 2):
+    """One ``enhance_video_stream`` pass; -> (pairs, ingest stats, seconds)."""
+    import cv2
+
+    from waternet_tpu_torch.data.video import enhance_video_stream
+
+    cap = cv2.VideoCapture(str(clip))
+    check(cap.isOpened(), f"cv2 cannot open {clip}")
+    stats = {}
+    t0 = time.perf_counter()
+    pairs = list(enhance_video_stream(engine, cap, batch_size=VIDEO["batch"], stats=stats, prefetch=prefetch))
+    dt = time.perf_counter() - t0
+    cap.release()
+    return pairs, stats, dt
+
+
+def run_video(torch, dev, card, r1_fp32: dict) -> dict:
+    """Phase 10 (V): the video path on a bf16 engine, R1 in bf16, the CLI
+    on the clip, flicker and the bench's video line, from its own seeded
+    generator. Returns the launches of the counted stream pass."""
+    import cv2
+
+    from waternet_tpu_torch.data.video import _read_batches
+    from waternet_tpu_torch.inference_engine import InferenceEngine
+    from waternet_tpu_torch.metrics.flicker import flicker_index
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.utils.synthetic import photo_frames
+
+    v = VIDEO
+    rng = np.random.default_rng(SEED + 10)
+    n_batches = -(-v["frames"] // v["batch"])
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        fourcc = probe_video_io(d)
+        clip = d / "clip.mp4"
+        write_clip(clip, fourcc, rng)
+        engine = InferenceEngine(weights=WEIGHTS, device_preprocess=True, dtype=torch.bfloat16)
+
+        # The counted pass: the stream as the CLI runs it.
+        kernels.reset_launches()
+        pairs, stats, dt_first = stream_pass(engine, clip)
+        counted = dict(kernels.LAUNCHES)
+        check(len(pairs) == v["frames"], f"V: the stream gave {len(pairs)} frames, want {v['frames']}")
+        check(stats == {"frames_decoded": v["frames"]}, f"V: ingest {stats}")
+        want = dict(NO_LAUNCH, tile_lut=n_batches, clahe_lut_planes=n_batches)
+        check(counted == want, f"V: stream launches {counted}, want {want}")
+
+        # The same decoded, padded batches through engine.enhance.
+        cap = cv2.VideoCapture(str(clip))
+        batches = list(_read_batches(cap, v["batch"], {}))
+        cap.release()
+        check([len(b) for b, _ in batches] == [v["batch"]] * (n_batches - 1) + [v["frames"] % v["batch"]],
+              f"V: batch sizes {[len(b) for b, _ in batches]}")
+        i = 0
+        for bgr, rgb in batches:
+            check(rgb.shape == (v["batch"], v["h"], v["w"], 3), f"V: padded batch {rgb.shape}")
+            out = engine.enhance(rgb)
+            for k in range(len(bgr)):
+                got_in, got_out = pairs[i]
+                check(np.array_equal(got_in, bgr[k]), f"V: input frame {i} out of order")
+                check(np.array_equal(got_out, cv2.cvtColor(out[k], cv2.COLOR_RGB2BGR)),
+                      f"V: frame {i} differs from engine.enhance on its padded batch")
+                i += 1
+        enhanced = [o for _, o in pairs]
+        for o in enhanced:
+            check(o.shape == (v["h"], v["w"], 3) and o.dtype == np.uint8 and o.std() > 0, "V: bad frame")
+        inputs = [f for f, _ in pairs]
+        del pairs, batches
+
+        # Warm passes: with the decode thread, and decoding inline.
+        _, _, dt_warm = stream_pass(engine, clip)
+        _, _, dt_inline = stream_pass(engine, clip, prefetch=0)
+        print(json.dumps({
+            "run": "V stream", "frames": v["frames"], "batch": v["batch"], "batches": n_batches,
+            "fourcc": fourcc, "launches": counted, "equals_engine_enhance": True,
+            "first_pass_s": dt_first, "warm_frames_per_s": v["frames"] / dt_warm,
+            "warm_frames_per_s_prefetch_0": v["frames"] / dt_inline, "card": card,
+        }), flush=True)
+
+        # bf16 R1, beside phase 5's fp32 R1.
+        r1 = photo_frames(rng, *REQUESTS["R1"])
+        engine.enhance(r1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lat = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.enhance(r1)
+            lat.append(time.perf_counter() - t0)
+        p50 = statistics.median(lat)
+        # How long enhance_async takes to return: on an idle card, and while
+        # the previous R1 batch still runs (the video stream's case).
+        idle, busy = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = engine.enhance_async(r1)
+            idle.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            second = engine.enhance_async(r1)
+            busy.append(time.perf_counter() - t0)
+            enqueued = torch.cuda.Event()
+            enqueued.record()
+            still_running = not enqueued.query()
+            torch.cuda.synchronize()
+            del first, second
+        print(json.dumps({
+            "request": "R1 bf16 x5", "latency_ms_p50": p50 * 1e3, "latency_ms": [t * 1e3 for t in lat],
+            "frames_per_s": REQUESTS["R1"][0] / p50, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "fp32_latency_ms_p50": r1_fp32["latency_ms_p50"], "fp32_peak_mem_bytes": r1_fp32["peak_mem_bytes"],
+            "speedup_over_fp32": r1_fp32["latency_ms_p50"] / (p50 * 1e3),
+            "enhance_async_return_ms_idle": statistics.median(idle) * 1e3,
+            "enhance_async_return_ms_behind_r1": statistics.median(busy) * 1e3,
+            "queue_still_busy_after_second_enqueue": still_running, "card": card,
+        }), flush=True)
+
+        # A bf16 request on the card against the CPU port's bf16 engine.
+        small = photo_frames(rng, *BF16_VS_CPU)
+        cpu = InferenceEngine(weights=WEIGHTS, device_preprocess=True, device="cpu", dtype=torch.bfloat16)
+        diff = np.abs(engine.enhance(small).astype(np.int16) - cpu.enhance(small).astype(np.int16))
+        line = {"bf16_vs_cpu": {"shape": list(small.shape), "max_abs_diff": int(diff.max()),
+                                "share_over_one": float((diff > 1).mean()),
+                                "share_differing": float((diff > 0).mean())}}
+        print(json.dumps(line), flush=True)
+        check(diff.max() <= 3 and (diff > 1).mean() <= 0.01, f"V: bf16 card vs CPU port {line}")
+        del engine, cpu
+        torch.cuda.empty_cache()
+
+        # The CLI on the clip.
+        out_root = d / "out"
+        cmd = [sys.executable, "-m", "waternet_tpu_torch.inference", "--source", str(clip),
+               "--weights", WEIGHTS, "--device-preprocess", "--precision", "bf16",
+               "--batch-size", str(v["batch"]), "--show-split", "--workers", "2",
+               "--output-root", str(out_root)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"V CLI failed:\n{proc.stdout}\n{proc.stderr}")
+        (ingest,) = [json.loads(ln)["video_ingest"] for ln in proc.stdout.splitlines()
+                     if ln.startswith('{"video_ingest"')]
+        written = read_frames(out_root / "0" / "clip.mp4")
+        print(json.dumps({
+            "run": "V CLI", "cli_wall_s": wall, "video_ingest": ingest, "frames_read_back": len(written),
+            "encoder_fallback": "avc1 encoder unavailable" in proc.stdout, "card": card,
+        }), flush=True)
+        check(ingest["frames_decoded"] == ingest["frames_written"] == v["frames"]
+              and ingest["decode_failures_mid_stream"] == 0, f"V CLI: ingest {ingest}")
+        check(len(written) == v["frames"] and all(f.shape == (v["h"], v["w"], 3) for f in written),
+              f"V CLI: {len(written)} frames written back")
+        del written
+
+    # Flicker of the decoded input and of the enhanced clip, on the card:
+    # under the pan's true flow, and under the identity flow.
+    def pan_flow(prev, nxt):
+        flow = torch.empty((*prev.shape[:2], 2), dtype=torch.float32, device=prev.device)
+        flow[..., 0], flow[..., 1] = v["pan"][1], v["pan"][0]
+        return flow
+
+    frames = {"input": [torch.from_numpy(f).to(dev) for f in inputs],
+              "enhanced": [torch.from_numpy(f).to(dev) for f in enhanced]}
+    print(json.dumps({"V flicker_index": {
+        k: {"true_flow": flicker_index(f, flow_fn=pan_flow), "identity_flow": flicker_index(f)}
+        for k, f in frames.items()}, "card": card}), flush=True)
+    del frames
+    del inputs, enhanced
+    run_bench(card, "--config", "video")
+    return counted
 
 
 def main() -> int:
@@ -1124,10 +1392,11 @@ def main() -> int:
         engine.enhance(batches["R1"])
         lat.append(time.perf_counter() - t0)
     p50 = statistics.median(lat)
+    r1_fp32 = {"latency_ms_p50": p50 * 1e3, "peak_mem_bytes": torch.cuda.max_memory_allocated()}
     print(json.dumps({
         "request": "R1 x5", "latency_ms_p50": p50 * 1e3, "latency_ms": [t * 1e3 for t in lat],
         "frames_per_s": REQUESTS["R1"][0] / p50,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": card,
+        "peak_mem_bytes": r1_fp32["peak_mem_bytes"], "card": card,
     }), flush=True)
 
     # R3 on the CPU port: within one uint8 level.
@@ -1173,6 +1442,10 @@ def main() -> int:
     run_bench(card)
     run_bench(card, "--config", "train_fullres")
     lap("9 T5c bench")
+
+    # 10. V: video through the stream and the CLI, bf16 R1, the video bench.
+    launches["video"] = run_video(torch, dev, card, r1_fp32)
+    lap("10 V video")
     print(json.dumps({"phase_s": phase_s, "total_s": sum(phase_s.values())}), flush=True)
 
     kernels_line = []

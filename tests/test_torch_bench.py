@@ -128,10 +128,38 @@ def test_unported_config_exits_2_naming_its_item(config, capsys):
     assert bench.main(["--config", config, "--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert "ROADMAP Queue A item" in err and config in err
-    if config == "video":
-        assert "item 3" in err
+    if config == "tiers":
+        assert "item 7" in err
 
 
 def test_unported_config_exit_status_from_the_cli():
-    proc = _bench("--config", "video")
-    assert proc.returncode == 2 and "item 3" in proc.stderr and proc.stdout == ""
+    proc = _bench("--config", "tiers")
+    assert proc.returncode == 2 and "item 7" in proc.stderr and proc.stdout == ""
+
+
+VIDEO = ("metric", "value", "unit", "vs_baseline", "batch", "frame_ms", "quantized", "mfu", "hbm_peak_bytes",
+         "peak_tflops_assumed", "device_kind", "hw", "precision")
+
+
+def test_video_config_ends_in_its_contract_line():
+    """bf16 on the CPU: a 32 x 56 smoke size, 2 frames a batch."""
+    proc = _bench("--config", "video", "--batch-size", "2")
+    assert proc.returncode == 0, proc.stderr
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert len(lines) == 1
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert tuple(line) == VIDEO
+    assert line["metric"] == "video_1080p_frames_per_sec_per_chip" and line["unit"] == "frames/sec/chip"
+    assert line["value"] > 0 and math.isfinite(line["value"]) and line["vs_baseline"] is None
+    assert line["frame_ms"] == pytest.approx(1e3 / line["value"])
+    assert (line["batch"], line["hw"], line["precision"]) == (2, [32, 56], "bf16")
+    assert line["quantized"] is False
+    assert line["mfu"] is None and line["hbm_peak_bytes"] is None and line["device_kind"] == "cpu"
+    assert "compile_sec" not in line
+
+
+def test_video_config_with_int8_exits_2_naming_item_7(capsys, monkeypatch):
+    monkeypatch.setenv("WATERNET_QUANT", "1")
+    assert bench.main(["--config", "video", "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "WATERNET_QUANT=1" in err and "ROADMAP Queue A item 7" in err

@@ -1,17 +1,23 @@
 """The port's serving slice end to end on the CPU, against the JAX package:
-``InferenceEngine`` (device- and host-preprocess), the hub triple, the
-inference CLI, the CUDA-by-default rule, and the import boundary.
+``InferenceEngine`` (device- and host-preprocess, fp32 and bf16), the hub
+triple, the inference CLI, the CUDA-by-default rule, and the import
+boundary.
 
-Tolerance: the engines' uint8 outputs agree within one level, on a small
-share of pixels. The fp32 forwards differ by float rounding (~1e-6) and
-the device path's LAB inverse may differ by one level on a few pixels,
-either of which can move a truncated uint8 output by one.
+Tolerance: the fp32 engines' uint8 outputs agree within one level, on a
+small share of pixels. The fp32 forwards differ by float rounding (~1e-6)
+and the device path's LAB inverse may differ by one level on a few pixels,
+either of which can move a truncated uint8 output by one. The bf16
+engines (bf16 autocast against flax's ``dtype=bfloat16``) agree within 3
+levels, and by more than one level on at most 1% of values: the two
+frameworks round the bf16 convolutions' products and activations in other
+places.
 """
 
 import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -64,6 +70,81 @@ def test_engine_matches_jax_engine(engines, shape, device_preprocess):
     port, ref = engines[device_preprocess]
     batch = frames(shape, seed=shape[1])
     assert_within_one_level(port.enhance(batch), ref.enhance(batch))
+
+
+@pytest.fixture(scope="module")
+def bf16_engines():
+    return {
+        dp: (
+            InferenceEngine(weights=TEACHER, device_preprocess=dp, device="cpu", dtype=torch.bfloat16),
+            JaxEngine(weights=TEACHER, device_preprocess=dp, dtype=jnp.bfloat16),
+        )
+        for dp in (True, False)
+    }
+
+
+def assert_within_bf16_bound(got, want):
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert diff.max() <= 3
+    assert (diff > 1).mean() <= 0.01
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("device_preprocess", [True, False], ids=["devpre", "hostpre"])
+def test_bf16_engine_matches_jax_bf16_engine(bf16_engines, shape, device_preprocess):
+    port, ref = bf16_engines[device_preprocess]
+    batch = frames(shape, seed=shape[1])
+    assert_within_bf16_bound(port.enhance(batch), ref.enhance(batch))
+
+
+@pytest.mark.parametrize("device_preprocess", [True, False], ids=["devpre", "hostpre"])
+def test_bf16_enhance_async_returns_float32_on_the_engine_device(bf16_engines, device_preprocess):
+    port, _ = bf16_engines[device_preprocess]
+    out = port.enhance_async(frames((2, 16, 24, 3), 1))
+    assert out.shape == (2, 16, 24, 3) and out.dtype == torch.float32
+    assert out.device.type == "cpu"
+
+
+def test_bf16_autocast_stops_at_the_model(bf16_engines, engines, monkeypatch):
+    """The bf16 device-preprocess engine's transforms run outside autocast
+    and equal the fp32 engine's bit for bit."""
+    import waternet_tpu_torch.inference_engine as ie
+
+    seen = []
+
+    def recording(rgb):
+        out = ie_transform(rgb)
+        seen.append((torch.is_autocast_enabled("cpu"), [t.clone() for t in out]))
+        return out
+
+    ie_transform = ie.transform_batch
+    monkeypatch.setattr(ie, "transform_batch", recording)
+    batch = frames((2, 40, 56, 3), 11)
+    bf16_engines[True][0].enhance(batch)
+    engines[True][0].enhance(batch)
+    (on_bf16, got), (on_fp32, want) = seen
+    assert not on_bf16 and not on_fp32
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, w)
+
+
+def test_engine_and_hub_refuse_other_dtypes():
+    with pytest.raises(ValueError, match="torch.float32 or torch.bfloat16"):
+        InferenceEngine(weights=TEACHER, device="cpu", dtype=torch.float16)
+    with pytest.raises(ValueError, match="torch.float32 or torch.bfloat16"):
+        waternet(weights=TEACHER, device="cpu", dtype=torch.float64)
+
+
+def test_bf16_hub_matches_jax_bf16_hub():
+    pre, post, model = waternet(weights=TEACHER, device="cpu", dtype=torch.bfloat16)
+    jpre, jpost, jmodel = jax_waternet(weights=TEACHER, dtype=jnp.bfloat16)
+    rgb = frames((1, 32, 40, 3), 6)[0]
+    with torch.inference_mode():
+        out = model(*pre(rgb))
+    assert out.dtype == torch.float32
+    assert_within_bf16_bound(post(out), jpost(jmodel(*jpre(rgb))))
 
 
 def test_enhance_async_returns_nhwc_float_on_the_engine_device(engines):
@@ -134,7 +215,8 @@ import waternet_tpu_torch
 for m in pkgutil.walk_packages(waternet_tpu_torch.__path__, "waternet_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-for name in ("data.pipeline", "data.uieb", "training.metrics_nr", "score"):
+for name in ("data.pipeline", "data.uieb", "training.metrics_nr", "score", "data.video",
+             "metrics.flicker", "inference"):
     assert "waternet_tpu_torch." + name in sys.modules, name
 bad = sorted(
     m for m in sys.modules

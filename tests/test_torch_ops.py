@@ -8,6 +8,9 @@ one level on a few pixels: XLA's CPU code may fuse the inverse's
 multiply-add chain into FMAs (differently per vector and remainder loop),
 torch's eager ops round each step.
 
+``WATERNET_SRGB_TRANSFER=float`` (the literal ``pow`` transfer) is held
+to the same one-level bound in both functions.
+
 CLAHE and ``histeq`` are compared with the JAX functions run op by op, as
 the JAX package's own cv2-parity tests run them. Under ``jax.jit`` XLA
 fuses CLAHE's blend into FMAs and moves L by one level on ~0.2% of the
@@ -32,7 +35,7 @@ from waternet_tpu.ops.transform import transform_batch as jax_transform_batch
 from waternet_tpu.ops.transform import transform_np as jax_transform_np
 from waternet_tpu.ops.wb import white_balance as jax_wb
 from waternet_tpu_torch.ops.clahe import clahe, histeq
-from waternet_tpu_torch.ops.color import lab_u8_to_rgb, rgb_to_lab_u8
+from waternet_tpu_torch.ops.color import _linear_to_srgb, lab_u8_to_rgb, rgb_to_lab_u8
 from waternet_tpu_torch.ops.gamma import gamma_correction
 from waternet_tpu_torch.ops.transform import transform_batch, transform_np
 from waternet_tpu_torch.ops.wb import white_balance
@@ -203,6 +206,45 @@ def test_histeq_within_one_level(batch):
     diff = np.abs(got - want)
     assert diff.max() <= 1.0
     assert (diff > 0).mean() < 0.01
+
+
+def test_lab_u8_to_rgb_float_transfer_within_one_level(batch, monkeypatch):
+    monkeypatch.setenv("WATERNET_SRGB_TRANSFER", "float")
+    lab = np.array(jax_rgb_to_lab(jnp.asarray(batch)))
+    got = lab_u8_to_rgb(torch.from_numpy(lab)).numpy()
+    want = np.asarray(jax_lab_to_rgb(jnp.asarray(lab)))
+    diff = np.abs(got - want)
+    assert diff.max() <= 1.0
+    assert (diff > 0).mean() < 0.01
+    # The mode is read at each call: the float path's transfer is the
+    # literal formula, and differs from the polynomial's in the last bits.
+    ramp = torch.linspace(0.0, 1.0, 4097)
+    literal = torch.where(ramp > 0.0031308, 1.055 * torch.pow(ramp, 1.0 / 2.4) - 0.055, 12.92 * ramp)
+    floated = _linear_to_srgb(ramp)
+    monkeypatch.setenv("WATERNET_SRGB_TRANSFER", "poly")
+    poly = _linear_to_srgb(ramp)
+    assert torch.equal(floated, literal) and not torch.equal(poly, literal)
+    assert (poly - literal).abs().max() < 1e-6
+
+
+def test_histeq_float_transfer_within_one_level(batch, monkeypatch):
+    monkeypatch.setenv("WATERNET_SRGB_TRANSFER", "float")
+    got = histeq(torch.from_numpy(batch)).numpy()
+    want = per_image(jax_histeq, batch)
+    diff = np.abs(got - want)
+    assert diff.max() <= 1.0
+    assert (diff > 0).mean() < 0.01
+
+
+@pytest.mark.parametrize("fn", ["port", "jax"])
+def test_unknown_srgb_transfer_raises(fn, monkeypatch):
+    monkeypatch.setenv("WATERNET_SRGB_TRANSFER", "polly")
+    lab = np.full((2, 3, 3), 128.0, np.float32)
+    with pytest.raises(ValueError, match="polly"):
+        if fn == "port":
+            lab_u8_to_rgb(torch.from_numpy(lab))
+        else:
+            jax_lab_to_rgb(jnp.asarray(lab))
 
 
 def test_transform_batch_order_and_tolerance(batch):

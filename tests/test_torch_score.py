@@ -129,3 +129,21 @@ def test_score_cli_runs_as_a_module(scoring_tree, tmp_path):
     metrics = json.loads(out.read_text())
     assert metrics["images"] == 13 and all(np.isfinite(v) for v in metrics.values())
     assert "Scored 13 raw images" in proc.stdout
+
+
+def test_no_reference_scores_in_bf16(scoring_tree, tmp_path):
+    """``--raw-dir --precision bf16`` scores through the bf16 engine: the
+    raw images' metrics are those of the fp32 run, the enhanced ones
+    finite."""
+    _, raw_dir, _ = scoring_tree
+    argv = ["--raw-dir", str(raw_dir), "--batch-size", "4", "--height", "32", "--width", "32",
+            "--nr-resize", "--weights", TEACHER, "--device", "cpu"]
+    out = {}
+    for precision in ("fp32", "bf16"):
+        path = tmp_path / f"{precision}.json"
+        port_score.main([*argv, "--precision", precision, "--json-out", str(path)])
+        out[precision] = json.loads(path.read_text())
+    assert out["bf16"]["images"] == 13
+    assert all(np.isfinite(v) for v in out["bf16"].values())
+    for k in ("uciqe_raw", "uiqm_raw"):
+        assert out["bf16"][k] == out["fp32"][k]

@@ -1,7 +1,8 @@
-"""The port's training benchmark: images per second on one card.
+"""The port's benchmark: training images and video frames per second on one card.
 
     python -m waternet_tpu_torch.bench                          # three lines
     python -m waternet_tpu_torch.bench --config train_fullres
+    python -m waternet_tpu_torch.bench --config video [--batch-size 4]
     python -m waternet_tpu_torch.bench --device cpu             # a smoke run
 
 The JAX package's root ``bench.py`` training lines, ported, on synthetic
@@ -25,6 +26,18 @@ the device synchronised at their end. Printed in this order:
    (with the precache tables by default; ``cache_build_sec``) and timed
    through ``cached_train_step()`` on the first index batch with a fixed
    generator.
+
+``--config video`` is the JAX bench's video line,
+``video_1080p_frames_per_sec_per_chip``: a bf16
+``InferenceEngine(device_preprocess=True)`` (the port's seeded init) on
+``--batch-size`` frames (4) of ``SyntheticPairs(1, h, w, seed=i)`` at
+1080 x 1920 (``WATERNET_BENCH_HW`` sets (HW, HW * 16 // 9)):
+``WATERNET_BENCH_WARMUP`` untimed calls (at least one), then
+``WATERNET_BENCH_STEPS`` double-buffered calls on the host clock, each
+uploading the batch and reading back the previous uint8 result, as the
+video CLI runs. ``mfu`` is the analytic WaterNet FLOPs of the frames over
+the time and the card's bf16 peak. ``WATERNET_QUANT=1`` (the JAX bench's
+int8 arm) exits 2: the int8 path is Queue A item 7.
 
 ``--config train_fullres`` is the full-res device-cache A/B at 256 x 256:
 the raw cache (with its tables) runs only where the preflight budgeter
@@ -68,7 +81,6 @@ BASELINE_IMG_PER_SEC = 12.0
 
 #: The JAX bench's other configs, and the ROADMAP item that ports what they drive.
 UNPORTED = {
-    "video": "Queue A item 3 (inference completion: video and a bf16 InferenceEngine)",
     **{name: "Queue A item 6 (serving)" for name in (
         "serve", "serve_multi", "serve_http", "serve_adaptive", "serve_chaos", "serve_fleet",
         "stream", "stream_reuse", "obs")},
@@ -333,21 +345,83 @@ def bench_train_fullres(dev) -> dict:
     }
 
 
+def bench_video(dev, batch: int = 4) -> dict:
+    """The video line: double-buffered bf16 enhancement of ``batch``
+    1080p frames a call, upload and uint8 readback included."""
+    from waternet_tpu_torch.data.synthetic import SyntheticPairs
+    from waternet_tpu_torch.hub import init_state_dict
+    from waternet_tpu_torch.inference_engine import InferenceEngine
+    from waternet_tpu_torch.models import waternet_forward_flops
+    from waternet_tpu_torch.obs.device import hbm_peak_bytes, peak_tflops
+    from waternet_tpu_torch.utils.tensor import ten2arr
+
+    hw = _env_int("WATERNET_BENCH_HW", 0)
+    h, w = (hw, hw * 16 // 9) if hw else (1080, 1920)
+    warmup = max(1, _env_int("WATERNET_BENCH_WARMUP", 3))
+    steps = max(1, _env_int("WATERNET_BENCH_STEPS", 30))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    engine = InferenceEngine(params=init_state_dict(0), device_preprocess=True, device=dev,
+                             dtype=torch.bfloat16)
+    frames = np.stack([SyntheticPairs(1, h, w, seed=i).load_pair(0)[0] for i in range(batch)])
+    for _ in range(warmup):
+        ten2arr(engine.enhance_async(frames))
+
+    t0 = time.perf_counter()
+    pending = engine.enhance_async(frames)
+    for _ in range(steps - 1):
+        nxt = engine.enhance_async(frames)
+        ten2arr(pending)
+        pending = nxt
+    out = ten2arr(pending)
+    dt = time.perf_counter() - t0
+    if out.shape != frames.shape or out.dtype != np.uint8:
+        raise RuntimeError(f"the video engine returned {out.dtype} {out.shape} for {frames.shape}")
+    fps = batch * steps / dt
+    peak = peak_tflops(dev, "bf16")
+    return {
+        "metric": "video_1080p_frames_per_sec_per_chip",
+        "value": fps,
+        "unit": "frames/sec/chip",
+        "vs_baseline": None,
+        "batch": batch,
+        "frame_ms": dt / (batch * steps) * 1e3,
+        "quantized": False,
+        "mfu": fps * waternet_forward_flops(h, w) / 1e12 / peak if peak else None,
+        "hbm_peak_bytes": hbm_peak_bytes(dev),
+        "peak_tflops_assumed": peak,
+        "device_kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
+        "hw": [h, w],
+        "precision": "bf16",
+    }
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--config", default="train", choices=["train", "train_fullres", *UNPORTED],
-                   help="train (default: the three training lines) or train_fullres (the 256x256 "
-                   "device-cache codec A/B); the JAX bench's other configs are not ported yet.")
+    p.add_argument("--config", default="train", choices=["train", "train_fullres", "video", *UNPORTED],
+                   help="train (default: the three training lines), train_fullres (the 256x256 "
+                   "device-cache codec A/B) or video (1080p bf16 inference); the JAX bench's other "
+                   "configs are not ported yet.")
+    p.add_argument("--batch-size", type=int, default=4, help="Frames a device batch (--config video).")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'.")
     args = p.parse_args(argv)
     if args.config in UNPORTED:
         print(f"bench --config {args.config} is not ported to waternet_tpu_torch yet "
               f"(ROADMAP {UNPORTED[args.config]})", file=sys.stderr)
         return 2
+    if args.config == "video" and os.environ.get("WATERNET_QUANT") == "1":
+        print("bench --config video with WATERNET_QUANT=1: the int8 path is not ported to "
+              "waternet_tpu_torch yet (ROADMAP Queue A item 7, fast tier)", file=sys.stderr)
+        return 2
+    if args.batch_size < 1:
+        p.error("--batch-size must be >= 1")
 
     from waternet_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
+    if args.config == "video":
+        print(json.dumps(bench_video(dev, args.batch_size)), flush=True)
+        return 0
     if args.config == "train_fullres":
         print(json.dumps(bench_train_fullres(dev)), flush=True)
         return 0

@@ -15,10 +15,15 @@ Example::
     with torch.inference_mode():
         out = model(rgb_t, wb_t, he_t, gc_t)      # (1, H, W, 3) in [0, 1]
     out_im = postprocess(out)                     # (1, H, W, 3) uint8
+
+``dtype=torch.bfloat16`` returns the model as a callable that runs it
+under bf16 autocast (fp32 parameters) and returns float32, as the JAX
+hub's ``dtype`` does.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from pathlib import Path
 from typing import Callable, Tuple
@@ -95,15 +100,48 @@ def build_model(state_dict, device) -> WaterNet:
     return model.to(device).eval()
 
 
+def init_state_dict(seed: int = 0) -> dict[str, torch.Tensor]:
+    """A WaterNet state_dict from ``torch``'s default init under ``seed``,
+    leaving the global generator as it was."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return WaterNet().state_dict()
+
+
+#: The model's compute dtypes: float32, or bf16 autocast over fp32 parameters.
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_dtype(dtype: torch.dtype) -> torch.dtype:
+    """``dtype`` if it is one of :data:`DTYPES`, else ValueError."""
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+    return dtype
+
+
+def run_model(model: WaterNet, dtype: torch.dtype, x, wb, ce, gc) -> torch.Tensor:
+    """``model(x, wb, ce, gc)`` in ``dtype``: bf16 under autocast on the
+    inputs' device, cast back to float32 at the boundary as the JAX model
+    casts its output."""
+    if dtype == torch.float32:
+        return model(x, wb, ce, gc)
+    with torch.autocast(x.device.type, dtype=dtype):
+        out = model(x, wb, ce, gc)
+    return out.to(torch.float32)
+
+
 def waternet(
-    pretrained: bool = True, weights=None, device="cuda"
-) -> Tuple[Callable, Callable, WaterNet]:
+    pretrained: bool = True, weights=None, device="cuda", dtype: torch.dtype = torch.float32
+) -> Tuple[Callable, Callable, Callable]:
     """Build the ``(preprocess, postprocess, model)`` triple on ``device``.
 
     ``pretrained=False`` gives a model initialised from ``torch``'s default
-    scheme under seed 0.
+    scheme under seed 0. ``dtype=torch.float32`` returns the ``WaterNet``
+    module itself; ``torch.bfloat16`` a callable that runs it under bf16
+    autocast and returns float32.
     """
     dev = resolve_device(device)
+    check_dtype(dtype)
     if pretrained:
         sd = resolve_weights(weights)
         if sd is None:
@@ -114,9 +152,7 @@ def waternet(
                 "Nothing is downloaded."
             )
     else:
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(0)
-            sd = WaterNet().state_dict()
+        sd = init_state_dict(0)
 
     def preprocess(rgb_arr):
         wb, gc, he = transform_np(rgb_arr)
@@ -125,4 +161,7 @@ def waternet(
     def postprocess(model_out):
         return ten2arr(model_out)
 
-    return preprocess, postprocess, build_model(sd, dev)
+    model = build_model(sd, dev)
+    if dtype == torch.float32:
+        return preprocess, postprocess, model
+    return preprocess, postprocess, functools.partial(run_model, model, dtype)

@@ -12,11 +12,14 @@ int32, whose ``>>`` is arithmetic in torch as in ``jnp.right_shift``.
 linear->sRGB transfer (a degree-10 polynomial in ``x ** 0.25``). Its
 float chain may round differently from XLA's (which may contract
 multiply-adds), so it is held to the JAX path within one level.
+``WATERNET_SRGB_TRANSFER=float`` selects the literal ``pow(x, 1/2.4)``
+transfer instead, the JAX package's A/B mode, read at each call.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -135,8 +138,25 @@ def rgb_to_lab_u8(rgb: torch.Tensor) -> torch.Tensor:
     return torch.clamp(lab, 0, 255).to(torch.float32)
 
 
+def _srgb_transfer_mode() -> str:
+    """The linear->sRGB transfer ``WATERNET_SRGB_TRANSFER`` selects:
+    ``poly`` (default, the sqrt + Horner path) or ``float`` (the literal
+    ``pow(x, 1/2.4)`` formula, kept for A/B measurement). Anything else
+    raises: a typo must not silently change the measured path."""
+    mode = os.environ.get("WATERNET_SRGB_TRANSFER", "poly").strip().lower()
+    if mode not in ("poly", "float"):
+        raise ValueError(f"WATERNET_SRGB_TRANSFER={mode!r}: expected 'poly' or 'float'")
+    return mode
+
+
 def _linear_to_srgb(v):
-    # Clamp to [cut, 1] (x > 1 clips to 255 downstream either way; p(1) is
+    if _srgb_transfer_mode() == "float":
+        return torch.where(
+            v > _SRGB_CUT,
+            1.055 * torch.pow(torch.clamp(v, min=0.0), 1.0 / 2.4) - 0.055,
+            12.92 * v,
+        )
+    # poly: clamp to [cut, 1] (x > 1 clips to 255 downstream either way; p(1) is
     # 1.0 exactly), substitute t = x**0.25 (two sqrts), Horner in the
     # window variable.
     t = torch.sqrt(torch.sqrt(torch.clamp(v, _SRGB_CUT, 1.0)))

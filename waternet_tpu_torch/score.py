@@ -17,9 +17,10 @@ ignores) and its metric dict, key for key:
   accumulation defect (the last batch's value over the batch count).
   Evaluation is unaugmented, as in the JAX scorer.
 * **no reference** (``--raw-dir``): UCIQE and UIQM of the raw images and
-  of their enhancement by the port's ``InferenceEngine``, at native
-  resolution (files grouped by the shape their header gives), or at
-  ``--height`` x ``--width`` with ``--nr-resize``.
+  of their enhancement by the port's ``InferenceEngine`` in
+  ``--precision``, at native resolution (files grouped by the shape
+  their header gives), or at ``--height`` x ``--width`` with
+  ``--nr-resize``.
 
 Prints the metric dict; ``--json-out`` also writes it. Runs on CUDA unless
 ``--device cpu`` is given.
@@ -81,17 +82,17 @@ def score_no_reference(args, dev) -> dict:
     from waternet_tpu_torch.training.metrics_nr import uciqe_batch, uiqm_batch
     from waternet_tpu_torch.utils.imagemeta import image_shape
 
-    if args.precision != "fp32":
-        raise SystemExit(
-            "--raw-dir scores through InferenceEngine, whose bf16 mode is not ported to "
-            "waternet_tpu_torch yet (ROADMAP Queue A item 3, inference completion); use --precision fp32"
-        )
     files = sorted(
         p for p in Path(args.raw_dir).glob("*") if p.suffix.lower() in (".png", ".jpg", ".jpeg", ".bmp")
     )
     if not files:
         raise FileNotFoundError(f"no images found in {args.raw_dir}")
-    engine = InferenceEngine(weights=args.weights, device_preprocess=args.device_preprocess, device=dev)
+    engine = InferenceEngine(
+        weights=args.weights,
+        device_preprocess=args.device_preprocess,
+        device=dev,
+        dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
+    )
 
     groups: dict = {}
     for f in files:

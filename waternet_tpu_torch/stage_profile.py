@@ -1,13 +1,14 @@
 """Where a request's or a train step's time goes, on one CUDA card.
 
-    python -m waternet_tpu_torch.stage_profile [--shape 4x1080x1920] [--reps 3]
+    python -m waternet_tpu_torch.stage_profile [--shape 4x1080x1920] [--precision bf16] [--reps 3]
     python -m waternet_tpu_torch.stage_profile --train [--shape 8x256x256] \
         [--precision fp32] [--codec dct8] [--precache] [--reps 3]
 
 Inference: runs the stages of ``InferenceEngine(device_preprocess=True).
 enhance`` one after another, as the engine runs them, with CUDA events
-between stages. Weights are the committed trained fixture; frames are made
-from a seed. ``--train``: one cached train step of ``TrainingEngine``,
+between stages; ``--precision bf16`` gives the engine bf16 autocast.
+Weights are the committed trained fixture; frames are made from a seed.
+``--train``: one cached train step of ``TrainingEngine``,
 the engine's own, with a CUDA event at each of its stage hooks (gather
 and decode, preprocess, forward, losses, backward, optimizer, metrics),
 perceptual loss on, over ``SyntheticPairs`` (seed 0) after a warm-up
@@ -37,7 +38,7 @@ from waternet_tpu_torch.ops.gamma import gamma_correction
 from waternet_tpu_torch.ops.wb import white_balance
 from waternet_tpu_torch.utils.device import gpu_card_line
 from waternet_tpu_torch.utils.synthetic import photo_frames
-from waternet_tpu_torch.utils.tensor import ten2arr
+from waternet_tpu_torch.utils.tensor import ten2arr, to_device
 
 WEIGHTS = Path(__file__).resolve().parent.parent / "tests/fixtures/distill/teacher.npz"
 
@@ -58,7 +59,7 @@ def _staged(engine, batch, events):
     a CUDA event after each; returns the uint8 result."""
     stamp = _event_stamp(events)
     stamp("start")
-    rgb = torch.as_tensor(batch).to(engine.device)
+    rgb = to_device(torch.as_tensor(batch), engine.device)
     stamp("upload")
     wb = white_balance(rgb)
     stamp("white_balance")
@@ -71,7 +72,7 @@ def _staged(engine, batch, events):
     he = lab_u8_to_rgb(torch.cat([el[..., None], lab[..., 1:]], dim=-1))
     stamp("lab_inverse")
     x = rgb.to(torch.float32) / 255.0
-    out = engine.model(x, wb / 255.0, he / 255.0, gc / 255.0)
+    out = engine.forward(x, wb / 255.0, he / 255.0, gc / 255.0)
     stamp("forward")
     res = ten2arr(out)
     stamp("download")
@@ -166,7 +167,8 @@ def main(argv=None):
         return train_main(args)
     n, h, w = (int(v) for v in (args.shape or "4x1080x1920").split("x"))
 
-    engine = InferenceEngine(weights=WEIGHTS, device_preprocess=True)
+    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    engine = InferenceEngine(weights=WEIGHTS, device_preprocess=True, dtype=dtype)
     batch = photo_frames(np.random.default_rng(0), n, h, w)
     want = engine.enhance(batch)  # warm-up, and the reference output
 
@@ -188,6 +190,7 @@ def main(argv=None):
     medians = {k: statistics.median(v) for k, v in stage_ms.items()}
     print(json.dumps({
         "shape": [n, h, w],
+        "precision": args.precision,
         "card": gpu_card_line(),
         "stage_ms": medians,
         "stage_sum_ms": sum(medians.values()),
