@@ -109,7 +109,33 @@ Phases; any failure exits non-zero, and nothing below is caught:
    index of the input and of the enhanced clip, under the pan's true
    flow and the identity flow; ``python -m
    waternet_tpu_torch.bench --config video``, its contract line with a
-   finite positive value and ``mfu`` in (0, 1].
+   finite positive value and ``mfu`` in (0, 1];
+11. R, resume and resilience, each count of launches from 0 around its
+   runs: R1, T1's config (8 x 256x256 dct8 cache, 64 pairs, perceptual
+   on) through ``TrainingEngine`` at fp32 with cuDNN's deterministic
+   algorithms, 2 epochs of 7 steps uninterrupted, then interrupted by a
+   real SIGTERM after global step 10 (``sigterm@10``, under
+   ``PreemptionGuard``), checkpointed by ``CheckpointManager`` at
+   (epoch 1, batch 3) and resumed in a fresh engine through
+   ``auto_resume``: the final parameters, Adam moments and steps, and the
+   epoch-2 metrics equal to the uninterrupted run's bit for bit, each of
+   ``dct8_decode_u8``, ``tile_lut`` and ``clahe_lut_blend`` launched once
+   a step in both runs, the save's and the restore's seconds and the
+   state's bytes; R2, the same host-fed through ``train_epoch_pipelined``
+   with 2 workers at T4's step size (16 x 112x112, 80 pairs, 5 steps an
+   epoch, ``sigterm@8``), no pipeline thread left after the preemption;
+   R3, one epoch of R1's config with ``nan@4`` under the default
+   ``DivergenceSentinel``: one skip, one rollback, finite parameters, and
+   13 launches of each kernel (7 dispatched steps, then the 6 good ones
+   replayed from the epoch-start snapshot); R4, ``python -m
+   waternet_tpu_torch.train`` at T4's bf16 config with
+   ``--heartbeat-dir``, ``--perf-csv`` and ``--profile-dir``,
+   uninterrupted, then with ``WATERNET_FAULTS=sigterm@20`` and again with
+   ``--resume auto``: the resumed run ends at the uninterrupted run's
+   step (32), every heartbeat's last record names its end (``done``,
+   ``preempted``), the metrics are finite, ``mfu_live`` is in (0, 1] and
+   ``hbm_peak_bytes`` > 0, and the resumed epoch's Chrome trace names
+   ``clahe_tile_lut_kernel`` and ``clahe_lut_blend_kernel``.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card line and
 the ``{"ok": true, "device": ...}`` result. Inputs are made with numpy
@@ -177,7 +203,17 @@ TRAIN_PLANES = {"T1": (T1["batch"], T1["hw"], "dct8"), "T2": (T2["batch"], T2["h
 # frame, so the true backward flow of every frame pair is (dx, dy).
 VIDEO = dict(frames=26, h=1080, w=1920, batch=4, fps=25, pan=(2, 4))
 BF16_VS_CPU = (1, 96, 128)
+# Phase 11 (resume and resilience). R1: T1's config through the engine
+# (8 x 256x256, dct8, 7 steps an epoch), a SIGTERM after global step 10 (epoch
+# 2, batch index 2: resumed at batch 3), and R3's NaN at step 4 of one epoch.
+# R2: T4's step size host-fed (80 pairs: 5 steps an epoch), SIGTERM after
+# step 8, also epoch 2 batch index 2. R4: T4's CLI config, SIGTERM after step
+# 20 (16 steps an epoch: epoch 2, batch index 3).
+RESUME_R1 = dict(synthetic=64, val_size=8, epochs=2, batch=8, hw=256, sigterm=10, nan=4)
+RESUME_R2 = dict(pairs=80, epochs=2, batch=16, hw=112, workers=2, sigterm=8)
+RESUME_R4 = dict(sigterm=20)
 WATERNET_MAC_PER_PX = 1_089_824
+TRAIN_KEYS = ("mse", "ssim", "psnr", "perceptual_loss", "loss")
 VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
            512, 512, 512, 512, "M", 512, 512, 512, 512)
 
@@ -1159,6 +1195,261 @@ def run_video(torch, dev, card, r1_fp32: dict) -> dict:
     return counted
 
 
+def state_tensors(torch, engine) -> dict:
+    """Every tensor of an engine's train state (parameters, Adam's moments
+    and steps) by path, copied to the host."""
+    st = engine.train_state()
+    out = {f"model/{k}": v for k, v in st["model"].items()}
+    for i, s in st["optimizer"]["state"].items():
+        out.update({f"optimizer/{i}/{k}": v for k, v in s.items()})
+    return {k: v.detach().to("cpu", copy=True) for k, v in out.items()}
+
+
+def run_resume_engine(torch, dev, card, tag: str) -> dict:
+    """R1 (dct8 cache) or R2 (host-fed, pipelined): the same 2-epoch run
+    uninterrupted, and interrupted by a real SIGTERM (``sigterm@K``) then
+    resumed in a fresh engine through ``auto_resume``; fp32 with cuDNN's
+    deterministic algorithms. The marker's position, the final parameters
+    and moments and the epoch-2 metrics are checked bit for bit, and each
+    kernel's launches against the steps dispatched. Returns the launches of
+    both runs."""
+    import threading
+
+    from waternet_tpu_torch.data.synthetic import SyntheticPairs, synthetic_split
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.resilience import (CheckpointManager, EpochControl, Preempted,
+                                               PreemptionGuard, auto_resume, faults)
+    from waternet_tpu_torch.training.trainer import TrainConfig, TrainingEngine
+
+    dct8 = tag == "R1"
+    t = RESUME_R1 if dct8 else RESUME_R2
+    cfg = dict(batch_size=t["batch"], im_height=t["hw"], im_width=t["hw"], precision="fp32", seed=SEED,
+               cache_codec="dct8" if dct8 else "raw")
+    if dct8:
+        ds = SyntheticPairs(t["synthetic"], t["hw"], t["hw"], seed=SEED)
+        idx = synthetic_split(len(ds), t["val_size"])[0]
+    else:
+        ds = SyntheticPairs(t["pairs"], t["hw"], t["hw"], seed=SEED)
+        idx = np.arange(t["pairs"])
+    steps = -(-len(idx) // t["batch"])
+    per_step = dict(CLAHE_ONLY, dct8_dequant_idct=int(dct8))
+
+    def engine():
+        eng = TrainingEngine(TrainConfig(**cfg), device=dev)
+        if dct8:
+            eng.cache_dataset(ds, idx)
+        return eng
+
+    def epoch(eng, e, **kw):
+        if dct8:
+            return eng.train_epoch_cached(e, **kw)
+        return eng.train_epoch_pipelined(ds, idx, e, workers=t["workers"], **kw)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as d, PreemptionGuard() as guard:
+            root = Path(d)
+            # Uninterrupted.
+            full = engine()
+            kernels.reset_launches()
+            for e in range(t["epochs"]):
+                m_full = epoch(full, e, control=EpochControl(preemption=guard))
+            torch.cuda.synchronize()
+            launches_full = dict(kernels.LAUNCHES)
+            want_full = {k: v * steps * t["epochs"] for k, v in per_step.items()}
+            check(launches_full == want_full, f"{tag} uninterrupted: launches {launches_full}, want {want_full}")
+            want_state = state_tensors(torch, full)
+            del full
+
+            # Interrupted by a real SIGTERM, checkpointed at the boundary.
+            run = root / "0"
+            mgr = CheckpointManager(run / "checkpoints")
+            eng = engine()
+            faults.install(faults.FaultPlan.parse(f"sigterm@{t['sigterm']}"))
+            kernels.reset_launches()
+            try:
+                for e in range(t["epochs"]):
+                    epoch(eng, e, control=EpochControl(preemption=guard))
+                check(False, f"{tag}: sigterm@{t['sigterm']} did not preempt")
+            except Preempted as pre:
+                mgr.save(eng, meta={"epoch": e, "batch_index": pre.next_batch, "partial_metrics": pre.partial})
+            finally:
+                faults.clear()
+            torch.cuda.synchronize()
+            launches_cut = dict(kernels.LAUNCHES)
+            guard.requested = False
+            leaked = [th.name for th in threading.enumerate() if th.name.startswith("waternet-pipeline")]
+            check(not leaked, f"{tag}: pipeline threads left after the preemption: {leaked}")
+            meta = json.loads(next((run / "checkpoints").glob("step-*/_COMPLETE.json")).read_text())
+            where = (meta["epoch"], meta["batch_index"])
+            check(where == (1, 3) and meta["step"] == t["sigterm"],
+                  f"{tag}: checkpoint at (epoch, batch) {where}, step {meta['step']}")
+            state_bytes = (next((run / "checkpoints").glob("step-*")) / "state" / "state.pt").stat().st_size
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.checkpoint(root / "probe")
+            save_s = time.perf_counter() - t0
+            del eng
+
+            # Resumed in a fresh engine.
+            res = engine()
+            t0 = time.perf_counter()
+            got = auto_resume(res, root)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            check(got is not None and got["batch_index"] == 3, f"{tag}: auto_resume gave {got}")
+            kernels.reset_launches()
+            m_res = epoch(res, got["epoch"], start_batch=got["batch_index"], carry=got["partial_metrics"],
+                          control=EpochControl(preemption=guard))
+            torch.cuda.synchronize()
+            launches_res = dict(kernels.LAUNCHES)
+            got_state = state_tensors(torch, res)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    steps_cut = t["sigterm"]
+    steps_res = steps * t["epochs"] - steps_cut
+    for what, got_l, n in (("interrupted", launches_cut, steps_cut), ("resumed", launches_res, steps_res)):
+        want = {k: v * n for k, v in per_step.items()}
+        check(got_l == want, f"{tag} {what}: launches {got_l}, want {want}")
+    same = [k for k in want_state if torch.equal(want_state[k], got_state[k])]
+    keys = TRAIN_KEYS
+    line = {
+        "run": f"{tag} resume", "feed": "dct8 cache" if dct8 else f"host-fed, {t['workers']} workers",
+        "steps_per_epoch": steps, "checkpoint_at": {"epoch": where[0], "batch_index": where[1],
+                                                     "step": meta["step"]},
+        "tensors_equal": f"{len(same)}/{len(want_state)}",
+        "epoch2_metrics_equal": all(m_res[k] == m_full[k] for k in keys),
+        "epoch2_metrics": {k: m_res[k] for k in keys},
+        "launches": {"uninterrupted": launches_full, "interrupted": launches_cut, "resumed": launches_res},
+        "checkpoint_save_s": save_s, "restore_s": restore_s,
+        "state_bytes": state_bytes,
+        "card": card,
+    }
+    print(json.dumps(line), flush=True)
+    check(len(same) == len(want_state), f"{tag}: {len(want_state) - len(same)} state tensors differ")
+    check(line["epoch2_metrics_equal"], f"{tag}: epoch-2 metrics differ: {m_res} vs {m_full}")
+    return {k: launches_cut[k] + launches_res[k] for k in launches_cut}
+
+
+def run_resume_nan(torch, dev, card) -> dict:
+    """R3: R1's config, one epoch with ``nan@K`` under the default sentinel
+    (window 16, so the epoch's 7 steps are checked at its end): one skip,
+    one rollback, finite parameters. The epoch dispatches its 7 steps, then
+    replays the 6 good ones from the epoch-start snapshot: 13 launches of
+    each kernel."""
+    from waternet_tpu_torch.data.synthetic import SyntheticPairs, synthetic_split
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.resilience import DivergenceSentinel, EpochControl, faults
+    from waternet_tpu_torch.training.trainer import TrainConfig, TrainingEngine
+
+    t = RESUME_R1
+    ds = SyntheticPairs(t["synthetic"], t["hw"], t["hw"], seed=SEED)
+    idx = synthetic_split(len(ds), t["val_size"])[0]
+    steps = -(-len(idx) // t["batch"])
+    eng = TrainingEngine(TrainConfig(batch_size=t["batch"], im_height=t["hw"], im_width=t["hw"],
+                                     precision="fp32", seed=SEED, cache_codec="dct8"), device=dev)
+    eng.cache_dataset(ds, idx)
+    faults.install(faults.FaultPlan.parse(f"nan@{t['nan']}"))
+    kernels.reset_launches()
+    try:
+        m = eng.train_epoch_cached(0, control=EpochControl(sentinel=DivergenceSentinel()))
+    finally:
+        faults.clear()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    dispatched = steps + (steps - 1)
+    want = {k: v * dispatched for k, v in dict(CLAHE_ONLY, dct8_dequant_idct=1).items()}
+    finite = all(bool(torch.isfinite(p).all()) for p in eng.model.parameters())
+    print(json.dumps({"run": "R3 NaN sentinel", "nan_at_step": t["nan"], "steps": steps,
+                      "nan_skipped": m["nan_skipped"], "nan_rollbacks": m["nan_rollbacks"],
+                      "dispatched": dispatched, "launches": launches, "params_finite": finite,
+                      "train": {k: m[k] for k in TRAIN_KEYS}, "card": card}), flush=True)
+    check(m["nan_skipped"] == 1 and m["nan_rollbacks"] == 1, f"R3: skipped {m['nan_skipped']}, "
+          f"rollbacks {m['nan_rollbacks']}")
+    check(finite and all(math.isfinite(m[k]) for k in TRAIN_KEYS), f"R3: not finite: {m}")
+    check(launches == want, f"R3: launches {launches}, want {want}")
+    return launches
+
+
+def run_resume_cli(torch, card) -> dict:
+    """R4: ``python -m waternet_tpu_torch.train`` at T4's bf16 config with
+    --heartbeat-dir, --perf-csv and --profile-dir: uninterrupted, then
+    interrupted by ``WATERNET_FAULTS=sigterm@K`` and continued with
+    ``--resume auto``. Returns the launches of the interrupted and resumed
+    runs' completed epochs."""
+    import os
+
+    t = T4
+    n_steps = (t["synthetic"] - t["val_size"]) // t["batch"] * t["epochs"]
+    totals = {}
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+
+        def cli(name, root, *extra, faults_spec=None):
+            env = dict(os.environ)
+            env.pop("WATERNET_FAULTS", None)
+            if faults_spec:
+                env["WATERNET_FAULTS"] = faults_spec
+            cmd = [sys.executable, "-m", "waternet_tpu_torch.train", "--device", "cuda", "--seed", str(SEED),
+                   "--train-root", str(root), "--heartbeat-dir", str(d / name / "hb"), "--perf-csv",
+                   "--profile-dir", str(d / name / "prof"), *t4_args(t["epochs"], 2), *extra]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"R4 {name} CLI failed:\n{proc.stdout}\n{proc.stderr}")
+            stats = [json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()
+                     if ln.startswith("epoch_stats ")]
+            beat = json.loads((d / name / "hb" / "worker-000.json").read_text())
+            return proc.stdout, stats, beat, wall
+
+        out_full, stats_full, beat_full, wall_full = cli("full", d / "full")
+        out_cut, stats_cut, beat_cut, wall_cut = cli("cut", d / "runs", faults_spec=f"sigterm@{RESUME_R4['sigterm']}")
+        out_res, stats_res, beat_res, wall_res = cli("resumed", d / "runs", "--resume", "auto")
+        step_full = torch.load(d / "full" / "0" / "state" / "state.pt", weights_only=True)["step"]
+        step_res = torch.load(d / "runs" / "1" / "state" / "state.pt", weights_only=True)["step"]
+        meta = json.loads(max((d / "runs" / "0" / "checkpoints").glob("step-*/_COMPLETE.json")).read_text())
+        perf = np.loadtxt(d / "runs" / "1" / "metrics-train.csv", delimiter=",", skiprows=1, ndmin=2)
+        header = (d / "runs" / "1" / "metrics-train.csv").read_text().splitlines()[0].split(",")
+        perf_full = np.loadtxt(d / "full" / "0" / "metrics-train.csv", delimiter=",", skiprows=1, ndmin=2)
+        trace_path = d / "resumed" / "prof" / "trace.json"
+        trace_text = trace_path.read_text()
+        trace_bytes = trace_path.stat().st_size
+    col = {k: header.index(k) for k in ("mfu_live", "hbm_peak_bytes")}
+    kernels_in_trace = {k: k in trace_text for k in ("clahe_tile_lut_kernel", "clahe_lut_blend_kernel")}
+    for s in stats_cut + stats_res:
+        for k, v in s["launches"]["train"].items():
+            totals[k] = totals.get(k, 0) + v
+        for k, v in s["launches"]["val"].items():
+            totals[k] = totals.get(k, 0) + v
+    metrics = [v for s in stats_res for v in list(s["train"].values()) + list(s["val"].values())]
+    line = {
+        "run": "R4 CLI resume, bf16", "uninterrupted_step": step_full, "resumed_step": step_res,
+        "want_step": n_steps, "checkpoint_at": {k: meta[k] for k in ("epoch", "batch_index", "step")},
+        "preempted_line": [ln for ln in out_cut.splitlines() if ln.startswith("Preempted")],
+        "resumed_line": [ln for ln in out_res.splitlines() if ln.startswith("Resuming")],
+        "heartbeat_last": {"full": beat_full["phase"], "cut": beat_cut["phase"], "resumed": beat_res["phase"]},
+        "perf_csv_last_row": {k: float(perf[-1, i]) for k, i in col.items()},
+        "perf_csv_full": {k: perf_full[:, i].tolist() for k, i in col.items()},
+        "trace_bytes": trace_bytes, "kernels_in_trace": kernels_in_trace,
+        "epochs_printed": {"cut": len(stats_cut), "resumed": len(stats_res)},
+        "resumed_epoch": stats_res[0] if stats_res else None,
+        "cli_wall_s": {"full": wall_full, "cut": wall_cut, "resumed": wall_res}, "card": card,
+    }
+    print(json.dumps(line), flush=True)
+    check(step_full == n_steps and step_res == step_full, f"R4: steps {step_full} (uninterrupted), "
+          f"{step_res} (resumed), want {n_steps}")
+    check((meta["epoch"], meta["batch_index"]) == (1, 4), f"R4: checkpoint at {meta}")
+    check(beat_res["phase"] == "done" and beat_full["phase"] == "done" and beat_cut["phase"] == "preempted",
+          f"R4: heartbeats {line['heartbeat_last']}")
+    check(len(stats_cut) == 1 and len(stats_res) == 1, f"R4: epochs printed {line['epochs_printed']}")
+    check(all(math.isfinite(v) for v in metrics), "R4: resumed metrics not finite")
+    mfu, hbm = line["perf_csv_last_row"]["mfu_live"], line["perf_csv_last_row"]["hbm_peak_bytes"]
+    check(0 < mfu <= 1 and hbm > 0, f"R4: --perf-csv mfu_live {mfu}, hbm_peak_bytes {hbm}")
+    check(all(kernels_in_trace.values()), f"R4: kernels in the Chrome trace: {kernels_in_trace}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -1446,6 +1737,13 @@ def main() -> int:
     # 10. V: video through the stream and the CLI, bf16 R1, the video bench.
     launches["video"] = run_video(torch, dev, card, r1_fp32)
     lap("10 V video")
+
+    # 11. R: resume and resilience on the card.
+    launches["resume_R1"] = run_resume_engine(torch, dev, card, "R1")
+    launches["resume_R2"] = run_resume_engine(torch, dev, card, "R2")
+    launches["resume_R3"] = run_resume_nan(torch, dev, card)
+    launches["resume_R4"] = run_resume_cli(torch, card)
+    lap("11 R resume")
     print(json.dumps({"phase_s": phase_s, "total_s": sum(phase_s.values())}), flush=True)
 
     kernels_line = []

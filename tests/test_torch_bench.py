@@ -163,3 +163,27 @@ def test_video_config_with_int8_exits_2_naming_item_7(capsys, monkeypatch):
     assert bench.main(["--config", "video", "--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert "WATERNET_QUANT=1" in err and "ROADMAP Queue A item 7" in err
+
+
+def test_bench_ab_alternates_sides_and_summarizes(monkeypatch, capsys):
+    """``bench_ab`` runs the two checkouts in alternating order and
+    reports each metric's median, quartiles and the pairs won."""
+    from waternet_tpu_torch import bench_ab
+    from waternet_tpu_torch.utils import device
+
+    calls = []
+
+    def fake(cwd, args):
+        calls.append((cwd == bench_ab._HERE, tuple(args)))
+        return {"m": 10.0 + len(calls) if cwd == bench_ab._HERE else 10.0}
+
+    monkeypatch.setattr(bench_ab, "bench_values", fake)
+    monkeypatch.setattr(device, "gpu_card_line", lambda: "card, 700.00 W")
+    assert bench_ab.main(["--parent", "/elsewhere", "--pairs", "3", "--", "--config", "x"]) == 0
+    assert [c[0] for c in calls] == [False, True, True, False, False, True]
+    assert all(c[1] == ("--config", "x") for c in calls)
+    out = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()[1:]]
+    assert [(d["pair"], d["side"]) for d in out[:6]] == [
+        (1, "parent"), (1, "change"), (2, "change"), (2, "parent"), (3, "parent"), (3, "change")]
+    summary = {d["side"]: d for d in out[6:]}
+    assert summary["parent"]["median"] == 10.0 and summary["change"]["change_wins"] == 3

@@ -308,6 +308,8 @@ def test_train_cli_writes_the_artifacts_and_jax_loads_its_weights(tmp_path):
         (["--synthetic", "8", "--cache-codec", "dct8"], "requires --device-cache"),
         (["--synthetic", "8", "--host-preprocess", "--device-preprocess"], "mutually exclusive"),
         (["--synthetic", "8", "--device-cache", "--host-preprocess"], "requires device preprocessing"),
+        (["--synthetic", "8", "--tensorboard"], "ROADMAP Queue A item 9"),
+        (["--synthetic", "8", "--checkpoint-every", "soon"], "--checkpoint-every: want N, Ns or Nm"),
     ],
 )
 def test_train_cli_refuses_what_is_not_ported(args, needle, tmp_path):

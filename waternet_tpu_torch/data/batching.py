@@ -29,14 +29,17 @@ def iter_batches(
     seed: int = 0,
     epoch: int = 0,
     drop_remainder: bool = False,
+    start: int = 0,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Yield (raw_u8, ref_u8) NHWC uint8 batches for one epoch, in the
     order :func:`epoch_permutation` gives (or ``indices`` as given with
-    ``shuffle=False``)."""
+    ``shuffle=False``). ``start`` skips the first ``start`` batches
+    without loading them (mid-epoch resume: the epoch's batches are the
+    same, the iterator enters them at the recorded position)."""
     order = epoch_permutation(indices, seed, epoch) if shuffle else np.array(indices, copy=True)
     n = len(order)
     stop = n - n % batch_size if drop_remainder else n
-    for start in range(0, stop, batch_size):
-        chunk = order[start : start + batch_size]
+    for s in range(start * batch_size, stop, batch_size):
+        chunk = order[s : s + batch_size]
         raws, refs = zip(*(load_pair(int(i)) for i in chunk))
         yield np.stack(raws), np.stack(refs)

@@ -1,8 +1,7 @@
 """Overlapped, deterministic input pipeline for the host-fed paths.
 
 The port of the JAX package's ``data/pipeline.py`` (threads only; its
-window counter is copied below, so nothing of the JAX package is
-imported).
+stall window is :class:`~waternet_tpu_torch.obs.window.WindowedCounter`).
 
 * :class:`OrderedPipeline` — a bounded worker pool (threads; cv2, numpy
   and CUDA copies release the GIL) runs a produce function over a work
@@ -37,39 +36,11 @@ from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from typing import Callable, Iterable, Iterator, Optional
 
+from waternet_tpu_torch.obs.window import WindowedCounter
+
 THREAD_PREFIX = "waternet-pipeline"
 
 STAGES = ("load", "preprocess", "transfer", "step")
-
-
-class WindowedCounter:
-    """Sliding-window event counter: a ring of ``shards`` slots of
-    ``window_sec / shards`` seconds each, reset lazily as time moves on
-    (the JAX package's ``obs/window.py::WindowedCounter``)."""
-
-    def __init__(self, window_sec: float = 300.0, shards: int = 30, clock=None):
-        if window_sec <= 0 or shards <= 0:
-            raise ValueError("window_sec and shards must be positive")
-        self.window_sec = float(window_sec)
-        self.shards = int(shards)
-        self.shard_sec = self.window_sec / self.shards
-        self._clock = clock if clock is not None else time.monotonic
-        self._lock = threading.Lock()
-        self._ring = [[-1, 0.0] for _ in range(self.shards)]  # guarded-by: self._lock
-
-    def add(self, n: float = 1.0) -> None:
-        epoch = int(self._clock() // self.shard_sec)
-        with self._lock:
-            slot = self._ring[epoch % self.shards]
-            if slot[0] != epoch:
-                slot[0] = epoch
-                slot[1] = 0.0
-            slot[1] += n
-
-    def total(self) -> float:
-        cur = int(self._clock() // self.shard_sec)
-        with self._lock:
-            return sum(v for epoch, v in self._ring if cur - self.shards < epoch <= cur)
 
 
 class PipelineStats:

@@ -93,10 +93,18 @@ class UIEBDataset:
     @staticmethod
     def _imread_retry(path, retries: int = 2):
         """Decode with retries (transient I/O on network volumes); None on
-        persistent failure, as ``cv2.imread`` returns for a corrupt file."""
+        persistent failure, as ``cv2.imread`` returns for a corrupt file.
+
+        Runs wherever ``load_pair`` runs, pipeline worker threads included,
+        so the ``decode@K`` fault hook lives here: an injected failure
+        consumes one attempt, as a real transient error does."""
         import cv2
 
+        from waternet_tpu_torch.resilience import faults
+
         for _ in range(1 + retries):
+            if faults.imread_should_fail():
+                continue  # injected decode failure: one attempt consumed
             img = cv2.imread(str(path))
             if img is not None:
                 return img

@@ -35,12 +35,32 @@ keys (stall pct, per-stage ms, transfer bytes per batch). With
 ``--device-cache`` a ``cache_build {...}`` JSON line comes first: the
 build's seconds, resident bytes and kernel launches.
 
+Fault tolerance, as in the JAX CLI: every epoch writes ``state/`` (the
+full train state: parameters, Adam moments, the schedule's position, the
+step) and a managed checkpoint under ``checkpoints/step-<n>/`` with the
+resume metadata (``--keep-checkpoints`` bounds them: the newest N plus
+the best val PSNR). SIGTERM/SIGINT checkpoint the run at the next step
+boundary with its exact position, so ``--resume auto`` (the newest good
+checkpoint across the run dirs under ``--train-root``, falling back past
+truncated ones) continues it bit for bit; ``--resume DIR`` restores one
+``state/`` directory. ``--checkpoint-every`` adds mid-epoch checkpoints;
+``--nan-guard`` contains a non-finite step by rollback and replay without
+the bad batch; ``--heartbeat-dir`` writes liveness records;
+``WATERNET_FAULTS`` (e.g. ``nan@3,sigterm@10``) injects faults for fire
+drills. ``--perf-csv`` appends the windowed ``mfu_live`` and
+``hbm_peak_bytes`` columns to ``metrics-train.csv``; ``--profile-dir``
+writes a ``torch.profiler`` Chrome trace of the first warm epoch;
+``--debug-nans`` stops at the first operation that makes a NaN. The port
+reads no JAX Orbax state: JAX state crosses over through
+``utils/convert.py::train_state_from_jax``.
+
 Runs on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -96,8 +116,37 @@ def parse_args(argv=None):
     p.add_argument("--synthetic", type=int, default=0, metavar="N",
                    help="Train on N synthetic pairs instead of reading --data-root.")
     p.add_argument("--train-root", help="Base directory of the numbered run directories (default: training/ at the repository root).")
+    p.add_argument("--resume", metavar="DIR|auto",
+                   help="A state/ directory to resume from (parameters, Adam moments, schedule, step), or 'auto': the "
+                   "newest restorable checkpoint under --train-root, falling back past corrupt ones, at its exact "
+                   "position.")
+    p.add_argument("--checkpoint-every", metavar="N|Ns|Nm",
+                   help="Mid-epoch checkpoints every N steps, or every N seconds/minutes (300s, 10m). Epoch-end "
+                   "checkpoints always happen.")
+    p.add_argument("--keep-checkpoints", type=int, default=3, metavar="N",
+                   help="Keep the newest N checkpoints plus the best-val-PSNR one (default 3).")
+    p.add_argument("--nan-guard", action="store_true",
+                   help="Divergence sentinel: check the step metrics every 16 steps; on NaN/Inf roll back to the last "
+                   "good state and replay without the bad batch (at most 8 an epoch).")
+    p.add_argument("--heartbeat-dir", metavar="DIR",
+                   help="Write liveness records (worker-000.json, replaced atomically at step boundaries, at most "
+                   "once per WATERNET_HEARTBEAT_SEC) into DIR; WATERNET_HEARTBEAT_DIR sets it too.")
+    p.add_argument("--perf-csv", action="store_true",
+                   help="Append the windowed mfu_live and hbm_peak_bytes columns to metrics-train.csv (nan where "
+                   "unmeasurable, e.g. on the CPU).")
+    p.add_argument("--profile-dir", metavar="DIR",
+                   help="Write a torch.profiler Chrome trace (trace.json) of the first warm epoch (epoch 2, or 1 with "
+                   "--epochs 1) into DIR.")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="Raise at the first operation whose output holds a NaN, naming it (slow; for debugging).")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="Not ported yet (ROADMAP Queue A item 9): exits 2.")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'.")
     args = p.parse_args(argv)
+    if args.tensorboard:
+        p.error("--tensorboard is not ported to waternet_tpu_torch yet (ROADMAP Queue A item 9): the JAX CLI "
+                "writes its scalars with tensorflow, and neither tensorflow nor tensorboard is installed beside the "
+                "port")
     if args.device_preprocess and args.host_preprocess:
         p.error(
             "--device-preprocess and --host-preprocess are mutually exclusive (device "
@@ -111,7 +160,27 @@ def parse_args(argv=None):
         # An ignored A/B flag must fail loudly, not measure the wrong path;
         # cache_dataset refuses the other combinations.
         p.error("--precache-vgg-ref requires --device-cache")
+    try:
+        args.every_steps, args.every_secs = parse_checkpoint_interval(args.checkpoint_every)
+    except ValueError:
+        p.error(f"--checkpoint-every: want N, Ns or Nm, got {args.checkpoint_every!r}")
     return args
+
+
+def parse_checkpoint_interval(spec):
+    """``"500"`` -> (500 steps, 0 s); ``"300s"``/``"10m"`` -> (0, seconds)."""
+    if not spec:
+        return 0, 0.0
+    spec = spec.strip().lower()
+    if spec.endswith("s"):
+        return 0, float(spec[:-1])
+    if spec.endswith("m"):
+        return 0, float(spec[:-1]) * 60.0
+    return int(spec), 0.0
+
+
+#: --perf-csv's columns, after the metrics.
+PERF_CSV_COLS = ("mfu_live", "hbm_peak_bytes")
 
 
 def main(argv=None) -> int:
@@ -122,6 +191,16 @@ def main(argv=None) -> int:
     from waternet_tpu_torch.data.uieb import UIEBDataset, reference_split
     from waternet_tpu_torch.models.vgg import resolve_vgg_params
     from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.resilience import (
+        CheckpointManager,
+        DivergenceSentinel,
+        EpochControl,
+        HeartbeatWriter,
+        Preempted,
+        PreemptionGuard,
+        auto_resume,
+    )
+    from waternet_tpu_torch.resilience import faults
     from waternet_tpu_torch.training.trainer import (
         TRAIN_METRICS_NAMES,
         VAL_METRICS_NAMES,
@@ -129,9 +208,9 @@ def main(argv=None) -> int:
         TrainingEngine,
         vgg_ref_bytes_per_item,
     )
+    from waternet_tpu_torch.utils import rundir
     from waternet_tpu_torch.utils.checkpoint import save_weights
     from waternet_tpu_torch.utils.device import resolve_device
-    from waternet_tpu_torch.utils.rundir import next_run_dir
 
     dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
@@ -139,6 +218,15 @@ def main(argv=None) -> int:
     def sync():
         if cuda:
             torch.cuda.synchronize(dev)
+
+    # Deterministic fault injection for fire drills and tests
+    # (WATERNET_FAULTS="nan@3,sigterm@10"); nothing without the variable.
+    faults.install_from_env()
+    # Liveness records (--heartbeat-dir or WATERNET_HEARTBEAT_DIR); the
+    # startup beat comes before the data and the model are set up.
+    heartbeat = HeartbeatWriter.resolve(args.heartbeat_dir)
+    if heartbeat is not None:
+        heartbeat.beat(step=0, phase="startup", force=True)
 
     config = TrainConfig(
         epochs=args.epochs,
@@ -186,6 +274,34 @@ def main(argv=None) -> int:
         params = resolve_weights(args.weights)
     vgg_params = None if args.no_perceptual else resolve_vgg_params(args.vgg_weights)
     engine = TrainingEngine(config, params=params, vgg_params=vgg_params, device=dev)
+
+    saved_train = {k: [] for k in TRAIN_METRICS_NAMES}
+    saved_val = {k: [] for k in VAL_METRICS_NAMES}
+    # --perf-csv: one row per epoch this process trained, aligned to the
+    # tail of saved_train when the CSV is written (a resumed history has
+    # no perf for the epochs an earlier process trained: those rows read nan).
+    saved_perf = {k: [] for k in PERF_CSV_COLS}
+    start_epoch, start_batch, carry = 0, 0, None
+    train_root = Path(args.train_root) if args.train_root else _REPO_ROOT / "training"
+    if args.resume == "auto":
+        meta = auto_resume(engine, train_root)
+        if meta is None:
+            print("No previous run state found; starting fresh")
+        else:
+            # A managed checkpoint carries the exact position and the metric
+            # history; a bare state/ directory (meta {}) neither.
+            start_epoch = int(meta.get("epoch", 0))
+            start_batch = int(meta.get("batch_index", 0))
+            carry = meta.get("partial_metrics") or None
+            for k, vals in (meta.get("history_train") or {}).items():
+                saved_train[k] = list(vals)
+            for k, vals in (meta.get("history_val") or {}).items():
+                saved_val[k] = list(vals)
+            if start_epoch or start_batch:
+                print(f"Resuming at epoch {start_epoch + 1}, batch {start_batch}")
+    elif args.resume:
+        engine.restore(args.resume)
+
     if args.device_cache:
         kernels.reset_launches()
         sync()
@@ -209,17 +325,20 @@ def main(argv=None) -> int:
             flush=True,
         )
 
-    def train_epoch(epoch):
+    def train_epoch(epoch, sb, control, carry):
+        start_items = min(sb * config.batch_size, len(train_idx))
         if args.device_cache:
-            return engine.train_epoch_cached(epoch)
+            return engine.train_epoch_cached(epoch, start_batch=sb, control=control, carry=carry)
         if args.workers > 0:
             return engine.train_epoch_pipelined(
-                dataset, train_idx, epoch, workers=args.workers, prefetch=args.prefetch
+                dataset, train_idx, epoch, workers=args.workers, prefetch=args.prefetch,
+                start_batch=sb, start_items=start_items, control=control, carry=carry,
             )
         batches = dataset.batches(
-            train_idx, config.batch_size, shuffle=config.shuffle, seed=config.seed, epoch=epoch
+            train_idx, config.batch_size, shuffle=config.shuffle, seed=config.seed, epoch=epoch, start=sb
         )
-        return engine.train_epoch(batches, epoch)
+        return engine.train_epoch(batches, epoch, start_batch=sb, start_items=start_items,
+                                  control=control, carry=carry)
 
     def val_epoch():
         if args.device_cache:
@@ -228,60 +347,131 @@ def main(argv=None) -> int:
             return engine.eval_epoch_pipelined(dataset, val_idx, workers=args.workers, prefetch=args.prefetch)
         return engine.eval_epoch(dataset.batches(val_idx, config.batch_size, shuffle=False))
 
-    train_root = Path(args.train_root) if args.train_root else _REPO_ROOT / "training"
-    savedir = next_run_dir(train_root)
-    saved_train = {k: [] for k in TRAIN_METRICS_NAMES}
-    saved_val = {k: [] for k in VAL_METRICS_NAMES}
+    def midepoch_meta(epoch, next_batch, partial):
+        return {"epoch": epoch, "batch_index": next_batch, "partial_metrics": partial,
+                "history_train": saved_train, "history_val": saved_val}
+
+    savedir = rundir.next_run_dir(train_root)
+    manager = CheckpointManager(savedir / "checkpoints", keep=args.keep_checkpoints)
     throughputs = []
     n_steps = -(-len(train_idx) // config.batch_size)
-    for epoch in range(args.epochs):
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
-        kernels.reset_launches()
-        sync()
-        t0 = time.perf_counter()
-        train_metrics = train_epoch(epoch)
-        sync()
-        train_dt = time.perf_counter() - t0
-        train_launches = dict(kernels.LAUNCHES)
-        kernels.reset_launches()
-        val_metrics = val_epoch()
-        sync()
-        dt = time.perf_counter() - t0
-        val_launches = dict(kernels.LAUNCHES)
-        ips = len(train_idx) / train_dt
-        throughputs.append(ips)
-        print(
-            f"Epoch {epoch + 1}/{args.epochs} "
-            f"[train {train_dt:.1f}s + val {dt - train_dt:.1f}s, {ips:.1f} img/s]"
-        )
-        print("    Train ||", "   ".join(f"{k}: {v:.03g}" for k, v in train_metrics.items()))
-        print("    Val   ||", "   ".join(f"{k}: {v:.03g}" for k, v in val_metrics.items()))
-        print("epoch_stats " + json.dumps({
-            "epoch": epoch + 1, "device": str(dev), "train_images": len(train_idx),
-            "steps": n_steps, "train_s": train_dt, "val_s": dt - train_dt,
-            "train_images_per_s": ips, "step_ms": train_dt / n_steps * 1e3,
-            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
-            "train": {k: train_metrics[k] for k in TRAIN_METRICS_NAMES},
-            "val": {k: val_metrics[k] for k in VAL_METRICS_NAMES},
-            **{k: v for k, v in train_metrics.items() if k.startswith("pipeline_")},
-            "val_pipeline": {k: v for k, v in val_metrics.items() if k.startswith("pipeline_")},
-            "launches": {"train": train_launches, "val": val_launches},
-        }), flush=True)
-        for k in TRAIN_METRICS_NAMES:
-            saved_train[k].append(train_metrics[k])
-        for k in VAL_METRICS_NAMES:
-            saved_val[k].append(val_metrics[k])
-        savedir.mkdir(parents=True, exist_ok=True)
-        save_weights(engine.model.state_dict(), savedir / "last.npz")
+    profile_epoch = min(1, args.epochs - 1)  # the first warm epoch
+    guard = PreemptionGuard()
+    with guard, _debug_nans(args.debug_nans):
+        for epoch in range(start_epoch, args.epochs):
+            sb = start_batch if epoch == start_epoch else 0
+            profiler = _start_profiler(cuda) if args.profile_dir and epoch == profile_epoch else None
+            if heartbeat is not None:
+                heartbeat.epoch = epoch
+            control = EpochControl(
+                preemption=guard,
+                sentinel=DivergenceSentinel() if args.nan_guard else None,
+                checkpoint_cb=lambda nb, pm, _e=epoch: manager.save(engine, meta=midepoch_meta(_e, nb, pm)),
+                every_steps=args.every_steps,
+                every_secs=args.every_secs,
+                heartbeat=heartbeat,
+            )
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            kernels.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            try:
+                train_metrics = train_epoch(epoch, sb, control, carry if epoch == start_epoch else None)
+            except Preempted as pre:
+                manager.save(engine, meta=midepoch_meta(epoch, pre.next_batch, pre.partial))
+                if profiler is not None:
+                    profiler.stop()
+                if heartbeat is not None:
+                    heartbeat.beat(step=engine._host_step, phase="preempted", force=True)
+                print(f"Preempted at epoch {epoch + 1}, batch {pre.next_batch}; checkpoint saved. "
+                      "Resume with --resume auto.", flush=True)
+                return 0
+            sync()
+            train_dt = time.perf_counter() - t0
+            train_launches = dict(kernels.LAUNCHES)
+            if heartbeat is not None:
+                # Val and the epoch-end checkpoints beat no steps: anchor the
+                # hang detector here.
+                heartbeat.beat(step=engine._host_step, phase="val", force=True)
+            kernels.reset_launches()
+            val_metrics = val_epoch()
+            sync()
+            dt = time.perf_counter() - t0
+            val_launches = dict(kernels.LAUNCHES)
+            if profiler is not None:
+                profiler.stop()
+                Path(args.profile_dir).mkdir(parents=True, exist_ok=True)
+                profiler.export_chrome_trace(str(Path(args.profile_dir) / "trace.json"))
+            # A resumed partial epoch trained only its tail: count that.
+            steps = n_steps - sb
+            trained = len(train_idx) - min(sb * config.batch_size, len(train_idx))
+            ips = trained / train_dt
+            throughputs.append(ips)
+            print(
+                f"Epoch {epoch + 1}/{args.epochs} "
+                f"[train {train_dt:.1f}s + val {dt - train_dt:.1f}s, {ips:.1f} img/s]"
+            )
+            print("    Train ||", "   ".join(f"{k}: {v:.03g}" for k, v in train_metrics.items()))
+            print("    Val   ||", "   ".join(f"{k}: {v:.03g}" for k, v in val_metrics.items()))
+            print("epoch_stats " + json.dumps({
+                "epoch": epoch + 1, "device": str(dev), "train_images": trained,
+                "steps": steps, "train_s": train_dt, "val_s": dt - train_dt,
+                "train_images_per_s": ips, "step_ms": train_dt / max(steps, 1) * 1e3,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
+                "train": {k: train_metrics[k] for k in TRAIN_METRICS_NAMES},
+                "val": {k: val_metrics[k] for k in VAL_METRICS_NAMES},
+                **{k: v for k, v in train_metrics.items() if k.startswith(("pipeline_", "nan_"))},
+                "val_pipeline": {k: v for k, v in val_metrics.items() if k.startswith("pipeline_")},
+                "launches": {"train": train_launches, "val": val_launches},
+            }), flush=True)
+            for k in TRAIN_METRICS_NAMES:
+                saved_train[k].append(train_metrics[k])
+            for k in VAL_METRICS_NAMES:
+                saved_val[k].append(val_metrics[k])
+            if args.perf_csv:
+                snap = engine.perf.epoch_snapshot()
+                for k in PERF_CSV_COLS:
+                    saved_perf[k].append(np.nan if snap[k] is None else float(snap[k]))
+            savedir.mkdir(parents=True, exist_ok=True)
+            save_weights(engine.model.state_dict(), savedir / "last.npz")
+            engine.checkpoint(savedir / "state")
+            # The managed checkpoint: atomic, marker-finalized, with the
+            # position and history a bit-for-bit --resume auto needs.
+            manager.save(engine, meta={
+                "epoch": epoch + 1, "batch_index": 0, "history_train": saved_train,
+                "history_val": saved_val, "val_psnr": float(val_metrics["psnr"]),
+            })
+            if heartbeat is not None:
+                heartbeat.beat(step=engine._host_step, phase="epoch-end", force=True)
+            if guard.requested:
+                # The signal came during val or the checkpoints: the
+                # epoch-end checkpoint above holds everything.
+                print(f"Preempted after epoch {epoch + 1}; checkpoint saved. Resume with --resume auto.", flush=True)
+                return 0
 
+    if heartbeat is not None:
+        heartbeat.beat(step=engine._host_step, phase="done", force=True)
     savedir.mkdir(parents=True, exist_ok=True)
-    for name, saved, cols in (
-        ("metrics-train.csv", saved_train, TRAIN_METRICS_NAMES),
-        ("metrics-val.csv", saved_val, VAL_METRICS_NAMES),
-    ):
-        arr = np.array([saved[k] for k in cols], dtype=np.float64).T.reshape(-1, len(cols))
-        np.savetxt(savedir / name, arr, fmt="%f", delimiter=",", comments="", header=",".join(cols))
+    train_arr = np.array([saved_train[k] for k in TRAIN_METRICS_NAMES], dtype=np.float64).T.reshape(
+        -1, len(TRAIN_METRICS_NAMES))
+    train_header = list(TRAIN_METRICS_NAMES)
+    if args.perf_csv and train_arr.size:
+        n = train_arr.shape[0]
+        cols = []
+        for k in PERF_CSV_COLS:
+            col = np.full(n, np.nan)
+            vals = saved_perf[k][-n:]
+            if vals:
+                col[n - len(vals):] = vals
+            cols.append(col)
+        train_arr = np.concatenate([train_arr, np.stack(cols, 1)], 1)
+        train_header += list(PERF_CSV_COLS)
+    val_arr = np.array([saved_val[k] for k in VAL_METRICS_NAMES], dtype=np.float64).T.reshape(
+        -1, len(VAL_METRICS_NAMES))
+    for name, arr, header in (("metrics-train.csv", train_arr, train_header),
+                              ("metrics-val.csv", val_arr, VAL_METRICS_NAMES)):
+        np.savetxt(savedir / name, arr, fmt="%f", delimiter=",", comments="", header=",".join(header))
     summary = {"epochs": len(throughputs), "wall_time_sec": time.perf_counter() - start_ts}
     if throughputs:
         summary["train_images_per_sec_mean"] = float(np.mean(throughputs))
@@ -306,6 +496,25 @@ def main(argv=None) -> int:
     print(f"Metrics and weights saved to {savedir}")
     print(f"Total time: {time.perf_counter() - start_ts}s")
     return 0
+
+
+def _start_profiler(cuda: bool):
+    """A started ``torch.profiler`` over the host and, on CUDA, the card."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _debug_nans(on: bool):
+    """``--debug-nans``: the NaN-checking dispatch mode, or nothing."""
+    if not on:
+        return contextlib.nullcontext()
+    from waternet_tpu_torch.utils.debug_nans import NanCheckMode
+
+    return NanCheckMode()
 
 
 if __name__ == "__main__":

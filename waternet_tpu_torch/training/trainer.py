@@ -49,10 +49,22 @@ preprocess, forward, losses, backward, optimizer, metrics);
 ``stage_profile --train`` records a CUDA event there. By default it does
 nothing.
 
+Resume and resilience, as in the JAX package. All three train epochs run
+through one driver, :meth:`TrainingEngine._drive_train_epoch`: steps are
+dispatched without waiting and their metrics fetched once at the epoch's
+end, or every ``window`` steps under a divergence sentinel. Each epoch
+takes ``start_batch`` (and, host-fed, ``start_items``) to enter the epoch
+at a recorded position, ``carry`` (the per-step metrics of the trained
+prefix, so the epoch means equal an uninterrupted run's bit for bit) and
+``control`` (:class:`~waternet_tpu_torch.resilience.EpochControl`:
+preemption, the sentinel's rollback and replay, interval checkpoints,
+heartbeats). :meth:`TrainingEngine.checkpoint` and :meth:`~TrainingEngine.
+restore` save and load the full train state (parameters, Adam moments,
+the schedule's position, the step) in the format of
+:func:`~waternet_tpu_torch.utils.checkpoint.save_state_atomic`.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item rather than being ignored): spatial sharding and distillation.
-Mid-epoch resume and the resilience controls of the JAX epochs
-(``start_batch``, ``carry``, ``control``) are not ported either.
 """
 
 from __future__ import annotations
@@ -60,6 +72,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -77,22 +91,115 @@ from waternet_tpu_torch.data.augment import (
 )
 from waternet_tpu_torch.data.batching import epoch_permutation
 from waternet_tpu_torch.data.pipeline import OrderedPipeline, PipelineStats
-from waternet_tpu_torch.models import WaterNet
+from waternet_tpu_torch.models import WaterNet, waternet_forward_flops
 from waternet_tpu_torch.models.vgg import VGG19Features, imagenet_normalize, init_vgg_params
+from waternet_tpu_torch.obs import device as obsdevice
+from waternet_tpu_torch.obs import trace
+from waternet_tpu_torch.obs import window as obswin
 from waternet_tpu_torch.ops.clahe import histeq
 from waternet_tpu_torch.ops.fused import fused_train_preprocess
 from waternet_tpu_torch.ops.gamma import gamma_correction
 from waternet_tpu_torch.ops.transform import transform_np
 from waternet_tpu_torch.ops.wb import white_balance
+from waternet_tpu_torch.resilience import faults
+from waternet_tpu_torch.resilience.preemption import Preempted
 from waternet_tpu_torch.training.losses import PERCEPTUAL_WEIGHT, mse_255, perceptual_loss
 from waternet_tpu_torch.training.metrics import psnr as psnr_fn
 from waternet_tpu_torch.training.metrics import ssim as ssim_fn
+from waternet_tpu_torch.utils.checkpoint import load_state, params_mismatch_report, save_state_atomic
 from waternet_tpu_torch.utils.convert import state_dict_from_jax, vgg_state_dict_from_jax
 from waternet_tpu_torch.utils.device import resolve_device
 from waternet_tpu_torch.utils.tensor import DeviceFeeder, to_device
 
 TRAIN_METRICS_NAMES = ["mse", "ssim", "psnr", "perceptual_loss", "loss"]
 VAL_METRICS_NAMES = ["mse", "ssim", "psnr", "perceptual_loss"]
+
+
+class CheckpointMismatchError(ValueError):
+    """A checkpoint that loads but does not fit this engine's model.
+
+    Distinct from a corrupt or truncated file so that ``--resume auto``
+    can tell the two apart: corruption falls back to the previous
+    checkpoint; a mismatch aborts with the shape report (falling back
+    would silently retrain from scratch, since every checkpoint of the
+    run would fail the same way).
+    """
+
+
+class TrainPerf:
+    """Windowed training-performance instruments riding the epoch driver
+    (the JAX package's ``TrainPerf``).
+
+    Fed only from host clocks the loop already reads (the span between
+    two dispatches) and each batch's image count, so arming it adds no
+    device sync. The MFU gauge is arithmetic: windowed images/s times the
+    analytic per-image training FLOPs over the card's peak
+    (:mod:`waternet_tpu_torch.obs.device`); the memory gauges read
+    ``torch.cuda`` once per epoch, and stay ``None`` (never 0) off CUDA.
+    """
+
+    def __init__(self, flops_per_image=None, peak_tflops=None, clock=None):
+        #: Train-step FLOPs per image of the run's plane; None disables MFU.
+        self.flops_per_image = flops_per_image
+        self.peak_tflops = peak_tflops
+        self.step_ms = obswin.WindowedHistogram(clock=clock)
+        self.images = obswin.WindowedCounter(clock=clock)
+        self.mfu = obswin.Gauge()
+        self.hbm_peak = obswin.Gauge()
+
+    def note_step(self, dt_s: float, n_images: int) -> None:
+        """One dispatched step: ``dt_s`` host seconds since the previous
+        dispatch, ``n_images`` real rows."""
+        self.step_ms.record(dt_s * 1e3)
+        if n_images > 0:
+            self.images.add(n_images)
+
+    def images_per_sec(self) -> float:
+        return self.images.rate(obswin.DEFAULT_WINDOW_SEC)
+
+    def update_gauges(self, device=None) -> None:
+        """Epoch-boundary refresh: live MFU from the windowed rate, and the
+        device's memory high-water mark where it reports one."""
+        if self.flops_per_image and self.peak_tflops:
+            ips = self.images_per_sec()
+            if ips > 0:
+                self.mfu.set(ips * self.flops_per_image / 1e12 / self.peak_tflops)
+        if device is not None:
+            peak = obsdevice.hbm_peak_bytes(device)
+            if peak is not None:
+                self.hbm_peak.set(peak)
+
+    def epoch_snapshot(self) -> dict:
+        """The per-epoch perf row (``train --perf-csv``): windowed step-time
+        quantiles and throughput, live MFU and peak device memory, None
+        where unmeasurable."""
+        steps = self.step_ms.merged(obswin.DEFAULT_WINDOW_SEC)
+        return {
+            "step_ms_p50": round(steps.quantile(0.50), 3),
+            "step_ms_p99": round(steps.quantile(0.99), 3),
+            "images_per_sec_window": round(self.images_per_sec(), 3),
+            "mfu_live": round(self.mfu.last(), 5) if self.mfu.last() is not None else None,
+            "hbm_peak_bytes": int(self.hbm_peak.peak()) if self.hbm_peak.peak() is not None else None,
+        }
+
+
+def _fetch_floats(per_step: list) -> list:
+    """Per-step metric dicts of 0-d device tensors -> dicts of Python
+    floats, read back in one copy."""
+    if not per_step:
+        return []
+    flat = torch.stack([v.detach().float().reshape(()) for m in per_step for v in m.values()]).cpu().tolist()
+    out, i = [], 0
+    for m in per_step:
+        out.append(dict(zip(m, flat[i : i + len(m)])))
+        i += len(m)
+    return out
+
+
+def _means(per_step: list, names) -> dict:
+    """The mean of each metric over the steps' float dicts: a float sum
+    in step order over the count, as the JAX package's epochs take it."""
+    return {k: sum(m[k] for m in per_step) / max(len(per_step), 1) for k in names}
 
 
 @dataclasses.dataclass
@@ -248,6 +355,16 @@ class TrainingEngine:
             self.vgg.to(self.device).eval().requires_grad_(False)
 
         self.optimizer, self.scheduler = make_optimizer(self.model.parameters(), config)
+        # Dispatched train steps, counted on the host: the fault plans'
+        # keys and the checkpoint manager's step names. A rollback does not
+        # rewind it (replays count again), as in the JAX package.
+        self._host_step = 0
+        # Windowed perf instruments, fed from host clocks (see TrainPerf):
+        # WaterNet forward and backward, 3x the forward's FLOPs, per image.
+        self.perf = TrainPerf(
+            flops_per_image=3 * waternet_forward_flops(config.im_height, config.im_width),
+            peak_tflops=obsdevice.peak_tflops(self.device, config.precision),
+        )
         self._feeder = DeviceFeeder(self.device)
         self._cache_enc = None
         self._cache_pre = None
@@ -449,13 +566,15 @@ class TrainingEngine:
         pix = cachecodec.decode(codec, payload, self.config.im_height, self.config.im_width)
         return pix[:b], pix[b:]
 
-    def _cached_index_batches(self, n: int, epoch: int, shuffle: bool):
-        """Yield (idx, n_real) covering all n items: the JAX trainer's batch
-        composition (the same Philox shuffle), without its padding to the
-        data axis (the port runs on one device)."""
+    def _cached_index_batches(self, n: int, epoch: int, shuffle: bool, start: int = 0):
+        """Yield (idx, n_real) covering all n items from batch ``start`` on:
+        the JAX trainer's batch composition (the same Philox shuffle),
+        without its padding to the data axis (the port runs on one
+        device)."""
+        b = self.config.batch_size
         order = epoch_permutation(np.arange(n), self.config.seed, epoch) if shuffle else np.arange(n)
-        for start in range(0, n, self.config.batch_size):
-            idx = order[start : start + self.config.batch_size].astype(np.int64)
+        for s in range(start * b, n, b):
+            idx = order[s : s + b].astype(np.int64)
             yield to_device(torch.from_numpy(idx), self.device), len(idx)
 
     def cached_train_step(self):
@@ -517,27 +636,21 @@ class TrainingEngine:
         return self.eval_step_pre(raw / 255.0, wb / 255.0, he / 255.0, gc / 255.0, ref / 255.0,
                                   n_real, ref_feats=ref_feats)
 
-    @staticmethod
-    def _epoch_means(per_step: list, names) -> dict:
-        """Mean of the per-step metrics, read back from the device once."""
-        if not per_step:
-            return {k: 0.0 for k in names}
-        stacked = torch.stack([torch.stack([m[k].float() for k in names]) for m in per_step])
-        means = stacked.mean(dim=0).cpu().tolist()
-        return dict(zip(names, means))
-
-    def train_epoch_cached(self, epoch: int) -> dict:
+    def train_epoch_cached(self, epoch: int, *, start_batch: int = 0, control=None, carry=None) -> dict:
         """One epoch over the cached dataset; the mean of the per-step
-        metrics, read back once at the epoch's end."""
+        metrics, read back once at the epoch's end (see
+        :meth:`_drive_train_epoch` for ``start_batch``, ``control`` and
+        ``carry``)."""
         step_fn, cache_args = self.cached_train_step()
         self.model.train()
-        per_step = []
-        for count, (idx, n_real) in enumerate(
-            self._cached_index_batches(self._cache_len, epoch, self.config.shuffle)
-        ):
+        batches = self._cached_index_batches(self._cache_len, epoch, self.config.shuffle, start_batch)
+        payloads = ((count, {"idx": idx, "n_real": n_real}) for count, (idx, n_real) in enumerate(batches, start_batch))
+
+        def dispatch(count, payload):
             gen = step_generator(self.config.seed, epoch, count)
-            per_step.append(step_fn(*cache_args, idx, gen, n_real))
-        return self._epoch_means(per_step, TRAIN_METRICS_NAMES)
+            return self._post_step(step_fn(*cache_args, payload["idx"], gen, payload["n_real"]))
+
+        return self._drive_train_epoch(payloads, dispatch, control, carry)
 
     def eval_epoch_cached(self, dataset=None, indices=None) -> dict:
         """Eval over a device cache. With ``dataset``/``indices``: a val
@@ -567,7 +680,7 @@ class TrainingEngine:
             for idx, n_real in self._cached_index_batches(n, epoch=0, shuffle=False)
         ]
         self.model.train()
-        return self._epoch_means(per_step, VAL_METRICS_NAMES)
+        return _means(_fetch_floats(per_step), VAL_METRICS_NAMES)
 
     # ------------------------------------------------------------------
     # Host-fed epochs
@@ -600,18 +713,155 @@ class TrainingEngine:
         """Host arrays -> device tensors, on the consumer's thread."""
         return self._feeder.receive(self._feeder.send(arrays))
 
-    def train_epoch(self, batch_iter, epoch: int) -> dict:
+    def _host_augment_rng(self, epoch: int, start_batch: int = 0, start_items: Optional[int] = None):
+        """The host augment stream of ``epoch``, ``default_rng(seed + 7 +
+        epoch)``, advanced past the first ``start_batch`` batches without
+        data: they held ``start_items`` items (default ``start_batch *
+        batch_size``), and each batch of n items drew n items' draws (the
+        port pads no batch)."""
+        rng = np.random.default_rng(self.config.seed + 7 + epoch)
+        if self.config.host_preprocess and self.config.augment:
+            b = self.config.batch_size
+            total = start_batch * b if start_items is None else start_items
+            for k in range(start_batch):
+                n_real = min(b, total - k * b)
+                if n_real <= 0:
+                    break
+                advance_augment_rng(rng, n_real)
+        return rng
+
+    def train_epoch(
+        self, batch_iter, epoch: int, *, start_batch: int = 0, start_items: Optional[int] = None,
+        control=None, carry=None,
+    ) -> dict:
         """One synchronous host-fed epoch over ``(raw_u8, ref_u8)`` numpy
-        batches; the mean of the per-step metrics, read back once. With
-        ``host_preprocess`` the batches are augmented from one numpy
-        stream, ``default_rng(seed + 7 + epoch)``, batch after batch."""
-        host_rng = np.random.default_rng(self.config.seed + 7 + epoch)
+        batches; the mean of the per-step metrics. With ``host_preprocess``
+        the batches are augmented from one numpy stream, ``default_rng(seed
+        + 7 + epoch)``, batch after batch.
+
+        Mid-epoch resume: ``batch_iter`` yields the batches from
+        ``start_batch`` on (``dataset.batches(..., start=start_batch)``),
+        and ``start_items``, the item count of the skipped prefix, moves the
+        host augment stream past it. ``control`` and ``carry`` as in
+        :meth:`_drive_train_epoch`."""
+        host_rng = self._host_augment_rng(epoch, start_batch, start_items)
         self.model.train()
-        per_step = []
-        for count, (raw, ref) in enumerate(batch_iter):
-            arrays = self._host_preprocess_np(raw, ref, host_rng) if self.config.host_preprocess else (raw, ref)
-            per_step.append(self._train_on(epoch, count, self._feed(arrays), raw.shape[0]))
-        return self._epoch_means(per_step, TRAIN_METRICS_NAMES)
+        payloads = ((count, {"raw": raw, "ref": ref, "n_real": raw.shape[0]})
+                    for count, (raw, ref) in enumerate(batch_iter, start_batch))
+
+        def dispatch(count, payload):
+            if "tensors" not in payload:  # a replay reuses the first dispatch's tensors
+                raw, ref = payload.pop("raw"), payload.pop("ref")
+                arrays = self._host_preprocess_np(raw, ref, host_rng) if self.config.host_preprocess else (raw, ref)
+                payload["tensors"] = self._feed(arrays)
+            return self._post_step(self._train_on(epoch, count, payload["tensors"], payload["n_real"]))
+
+        return self._drive_train_epoch(payloads, dispatch, control, carry)
+
+    def _post_step(self, metrics: dict) -> dict:
+        """After each dispatched step: count it on the host and run the
+        fault-injection hook (an ``is None`` check without a plan)."""
+        self._host_step += 1
+        return faults.after_train_step(self, metrics, self._host_step)
+
+    def _drive_train_epoch(self, payloads, dispatch, control=None, carry=None) -> dict:
+        """The train epochs' shared driver: deferred metric fetch, and the
+        resilience controls (the JAX package's ``_drive_train_epoch``).
+
+        ``payloads`` yields ``(count, payload)``, ``count`` the batch's
+        index in the epoch; ``dispatch(count, payload)`` runs one step and
+        returns its metrics as 0-d device tensors. Dispatching the same
+        payload again must repeat the step bit for bit: each step's batch,
+        generator and augment draws are functions of (seed, epoch, count),
+        and a host-fed payload keeps the tensors its first dispatch made.
+        That is what makes the sentinel's replay and mid-epoch resume
+        exact.
+
+        ``carry``: the per-step metric dicts (floats) of the batches before
+        the first payload, when resuming mid-epoch; the epoch means cover
+        them. ``control`` (:class:`~waternet_tpu_torch.resilience.
+        EpochControl`) is consulted after each step: a heartbeat; under a
+        divergence sentinel, a fetch every ``window`` steps, and on a
+        non-finite step a rollback to the last verified snapshot, a replay
+        of the verified-good steps without the bad batch, and a re-check;
+        a preemption raises :class:`~waternet_tpu_torch.resilience.
+        Preempted` ``(next batch, per-step metrics so far)`` after
+        fetching; a due interval checkpoint is taken at the boundary it
+        fires on. With ``control=None`` every step is dispatched and the
+        metrics are read back once, at the end.
+
+        Returns the mean of each metric over the epoch's steps (sums of
+        floats, as the JAX package), with ``nan_skipped`` and
+        ``nan_rollbacks`` under a sentinel."""
+        fetched = [dict(m) for m in carry] if carry else []
+        pending = []  # [(count, payload or None, device metrics)]
+        sentinel = control.sentinel if control is not None else None
+        snapshot = None
+        if sentinel is not None:
+            sentinel.begin_epoch()
+            snapshot = self._host_state_copy()
+
+        def verify():
+            """Fetch the pending metrics; under a sentinel, on the first
+            non-finite one restore the snapshot, replay the good steps
+            without the bad one, and check again (each pass drops a batch,
+            and the sentinel's budget bounds the passes)."""
+            nonlocal pending, snapshot
+            while pending:
+                t_fetch0 = time.perf_counter() if trace.enabled() else None
+                vals = _fetch_floats([m for _, _, m in pending])
+                if t_fetch0 is not None:
+                    trace.record_span("metrics_fetch", "training", t_fetch0, time.perf_counter(),
+                                      args={"steps": len(pending), "first": pending[0][0], "last": pending[-1][0]})
+                bad = sentinel.first_bad(vals) if sentinel is not None else None
+                if bad is None:
+                    fetched.extend(vals)
+                    pending = []
+                    break
+                sentinel.note_skip(pending[bad][0])
+                self._own_device_state(snapshot)
+                replay = pending[:bad] + pending[bad + 1 :]
+                pending = [(cnt, payload, dispatch(cnt, payload)) for cnt, payload, _ in replay]
+            if sentinel is not None:
+                snapshot = self._host_state_copy()
+
+        t_prev = None
+        for count, payload in payloads:
+            t_step0 = time.perf_counter() if trace.enabled() else None
+            metrics = dispatch(count, payload)
+            # Only a sentinel's replay needs the payload again; dropping it
+            # otherwise frees a host-fed batch's device tensors after its step.
+            pending.append((count, payload if sentinel is not None else None, metrics))
+            if t_step0 is not None:
+                trace.record_span("step_dispatch", "training", t_step0, time.perf_counter(),
+                                  args={"batch": count, "step": self._host_step})
+            if obswin.enabled():
+                # The span between dispatches: at steady state the host waits
+                # on the device's queue, so this tracks the step time.
+                t_now = time.perf_counter()
+                if t_prev is not None:
+                    self.perf.note_step(t_now - t_prev, payload["n_real"])
+                t_prev = t_now
+            if control is None:
+                continue
+            if control.heartbeat is not None:
+                control.heartbeat.beat(step=self._host_step)
+            if sentinel is not None and len(pending) >= sentinel.window:
+                verify()
+            if control.preempt_requested():
+                verify()
+                raise Preempted(count + 1, fetched)
+            if control.checkpoint_due():
+                verify()
+                control.checkpoint(count + 1, fetched)
+        verify()
+        if obswin.enabled():
+            self.perf.update_gauges(self.device)
+        out = _means(fetched, TRAIN_METRICS_NAMES)
+        if sentinel is not None:
+            out["nan_skipped"] = float(sentinel.skipped)
+            out["nan_rollbacks"] = float(sentinel.rollbacks)
+        return out
 
     def eval_epoch(self, batch_iter) -> dict:
         """Synchronous host-fed eval over ``(raw_u8, ref_u8)`` numpy batches
@@ -622,27 +872,28 @@ class TrainingEngine:
             arrays = self._host_preprocess_np(raw, ref) if self.config.host_preprocess else (raw, ref)
             per_step.append(self._eval_on(self._feed(arrays), raw.shape[0]))
         self.model.train()
-        return self._epoch_means(per_step, VAL_METRICS_NAMES)
+        return _means(_fetch_floats(per_step), VAL_METRICS_NAMES)
 
-    def _epoch_plan(self, indices, epoch: int, shuffle: bool):
-        """``[(count, index_chunk)]`` for one epoch: the batches of
-        :func:`~waternet_tpu_torch.data.batching.iter_batches` (same Philox
-        stream) as a work list whose items workers may produce in any
-        order."""
+    def _epoch_plan(self, indices, epoch: int, shuffle: bool, start_batch: int = 0):
+        """``[(count, index_chunk)]`` for one epoch from batch ``start_batch``
+        on: the batches of :func:`~waternet_tpu_torch.data.batching.
+        iter_batches` (same Philox stream) as a work list whose items
+        workers may produce in any order; the skipped ones are not loaded."""
         order = epoch_permutation(indices, self.config.seed, epoch) if shuffle else np.array(indices, copy=True)
         b = self.config.batch_size
-        return [(count, order[s : s + b]) for count, s in enumerate(range(0, len(order), b))]
+        return [(count, order[s : s + b]) for count, s in enumerate(range(0, len(order), b)) if count >= start_batch]
 
-    def _plan_augment_states(self, plan, epoch: int):
+    def _plan_augment_states(self, plan, epoch: int, start_batch: int = 0, start_items: Optional[int] = None):
         """Each batch's start state of the host augment stream, or None when
         the stream is unused. The consumer advances the one stream the
-        synchronous epoch draws from, without data, and records where each
-        batch starts; a worker clones its batch's state and makes the same
-        draws in any completion order. The port runs on one device, so a
-        batch of n items consumes n items' draws (no padding rows)."""
+        synchronous epoch draws from (past the skipped prefix, as
+        :meth:`_host_augment_rng` does), without data, and records where
+        each batch starts; a worker clones its batch's state and makes the
+        same draws in any completion order. The port runs on one device, so
+        a batch of n items consumes n items' draws (no padding rows)."""
         if not (self.config.host_preprocess and self.config.augment):
             return None
-        host_rng = np.random.default_rng(self.config.seed + 7 + epoch)
+        host_rng = self._host_augment_rng(epoch, start_batch, start_items)
         states = {}
         for count, chunk in plan:
             states[count] = copy.deepcopy(host_rng.bit_generator.state)
@@ -655,7 +906,8 @@ class TrainingEngine:
         own cloned RNG, and copy the result to the device, each stage timed
         into ``stats``. A pure function of the item, so completion order
         cannot change results. Returns ``(count, sent, n_real)``; the
-        consumer keeps no batch past its step, only its 0-d metrics."""
+        consumer keeps no batch past its step, only its 0-d metrics (under
+        a divergence sentinel, past the sentinel's window)."""
 
         def produce(item):
             count, chunk = item
@@ -678,37 +930,40 @@ class TrainingEngine:
 
         return produce
 
-    def _run_pipeline(self, dataset, plan, aug_states, step, workers: int, prefetch: int, name: str):
-        """Drive ``step(count, tensors, n_real)`` over ``plan`` through an
-        :class:`OrderedPipeline`; -> (per-step metrics, stats). The
-        ``step`` stage times the step's enqueue on the consumer thread."""
-        stats = PipelineStats()
-        per_step = []
-        produce = self._pipeline_produce(dataset, aug_states, stats)
-        with OrderedPipeline(produce, plan, workers=workers, prefetch=prefetch, stats=stats, name=name) as pipe:
-            for count, sent, n_real in pipe:
-                with stats.stage("step"):
-                    per_step.append(step(count, self._feeder.receive(sent), n_real))
-        return per_step, stats
-
-    def train_epoch_pipelined(self, dataset, indices, epoch: int, *, workers: int = 2, prefetch: int = 0) -> dict:
+    def train_epoch_pipelined(
+        self, dataset, indices, epoch: int, *, workers: int = 2, prefetch: int = 0, start_batch: int = 0,
+        start_items: Optional[int] = None, control=None, carry=None,
+    ) -> dict:
         """Overlapped host-fed epoch: equal, bit for bit, to
         :meth:`train_epoch` over ``dataset.batches(indices, ...)`` (same
         batches, same augment draws, same steps), with loading, host
         preprocessing and the copy to the device of later batches running
         on ``workers`` threads while the current step runs. ``workers=0``
-        runs the same code inline. The metrics gain the ``pipeline_*``
-        keys: stall pct, per-stage ms, queue depth, workers, and the
-        transfer bytes per batch."""
-        plan = self._epoch_plan(indices, epoch, self.config.shuffle)
-        aug_states = self._plan_augment_states(plan, epoch)
+        runs the same code inline. The steps are dispatched on the
+        consumer's thread through :meth:`_drive_train_epoch`, so resume
+        (``start_batch``, ``start_items``), ``control`` and ``carry`` behave
+        as in :meth:`train_epoch`; a preemption or an error closes the
+        pipeline (its workers joined, its queued batches dropped) before it
+        propagates. The metrics gain the ``pipeline_*`` keys: stall pct,
+        per-stage ms, queue depth, workers, and the transfer bytes per
+        batch."""
+        plan = self._epoch_plan(indices, epoch, self.config.shuffle, start_batch)
+        aug_states = self._plan_augment_states(plan, epoch, start_batch, start_items)
+        stats = PipelineStats()
         self.model.train()
-        per_step, stats = self._run_pipeline(
-            dataset, plan, aug_states,
-            lambda count, tensors, n_real: self._train_on(epoch, count, tensors, n_real),
-            workers, prefetch, "train",
-        )
-        out = self._epoch_means(per_step, TRAIN_METRICS_NAMES)
+
+        def dispatch(count, payload):
+            with stats.stage("step"):
+                return self._post_step(self._train_on(epoch, count, payload["tensors"], payload["n_real"]))
+
+        pipe = OrderedPipeline(self._pipeline_produce(dataset, aug_states, stats), plan,
+                               workers=workers, prefetch=prefetch, stats=stats, name="train")
+        payloads = ((count, {"tensors": self._feeder.receive(sent), "n_real": n_real})
+                    for count, sent, n_real in pipe)
+        try:
+            out = self._drive_train_epoch(payloads, dispatch, control, carry)
+        finally:
+            pipe.close()
         out.update(stats.metrics())
         return out
 
@@ -716,12 +971,85 @@ class TrainingEngine:
         """Pipelined counterpart of :meth:`eval_epoch` (no shuffle, no
         augmentation): the same metric values, plus the ``pipeline_*`` keys."""
         plan = self._epoch_plan(indices, epoch=0, shuffle=False)
+        stats = PipelineStats()
+        per_step = []
         self.model.eval()
-        per_step, stats = self._run_pipeline(
-            dataset, plan, None, lambda count, tensors, n_real: self._eval_on(tensors, n_real),
-            workers, prefetch, "eval",
-        )
+        with OrderedPipeline(self._pipeline_produce(dataset, None, stats), plan,
+                             workers=workers, prefetch=prefetch, stats=stats, name="eval") as pipe:
+            for _, sent, n_real in pipe:
+                with stats.stage("step"):
+                    per_step.append(self._eval_on(self._feeder.receive(sent), n_real))
         self.model.train()
-        out = self._epoch_means(per_step, VAL_METRICS_NAMES)
+        out = _means(_fetch_floats(per_step), VAL_METRICS_NAMES)
         out.update(stats.metrics())
         return out
+
+    # ------------------------------------------------------------------
+    # The full train state: checkpoint, restore, rollback snapshots
+    # ------------------------------------------------------------------
+
+    def train_state(self) -> dict:
+        """The live train state, as references to the live tensors:
+        ``{"model", "optimizer", "scheduler", "step"}``, the WaterNet, Adam
+        and schedule state_dicts and the optimizer step count. Copy it
+        before the next step if it must not change (:meth:`_host_state_copy`,
+        :meth:`checkpoint`)."""
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "step": int(self.scheduler.last_epoch),
+        }
+
+    def load_train_state(self, state: dict) -> None:
+        """Load a train state (what :meth:`train_state` returns, what a
+        checkpoint holds, or what :func:`~waternet_tpu_torch.utils.convert.
+        train_state_from_jax` makes) into the live model, optimizer and
+        schedule. Loads a copy: ``Optimizer.load_state_dict`` keeps the
+        tensors it is given when they already sit on the parameters' device
+        (Adam's per-parameter ``step`` always), and the next step updates
+        them in place, so loading ``state`` itself would let training
+        rewrite it."""
+        state = copy.deepcopy(state)
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+
+    def checkpoint(self, path) -> None:
+        """Save the full train state (parameters, Adam moments, the
+        schedule's position, the step) to the directory ``path``,
+        atomically (:func:`~waternet_tpu_torch.utils.checkpoint.
+        save_state_atomic`): the reference saved weights only and so reset
+        Adam and the schedule on resume."""
+        save_state_atomic(self.train_state(), path)
+
+    def restore(self, path) -> None:
+        """Restore the full train state saved at ``path``.
+
+        Reads the whole file before touching the engine, so a truncated or
+        corrupt checkpoint raises and leaves the engine as it was. A state
+        that does not fit this engine's model raises
+        :class:`CheckpointMismatchError` naming each tensor that differs.
+        Read onto the CPU: the optimizer copies the moments to the
+        parameters' device and keeps Adam's step counts on the CPU, where
+        a non-capturable Adam reads them."""
+        path = Path(path).absolute()
+        state = load_state(path, map_location="cpu")
+        report = params_mismatch_report(state["model"], self.model.state_dict())
+        if report:
+            raise CheckpointMismatchError(f"checkpoint at {path} does not fit the model config:\n{report}")
+        self.load_train_state(state)
+        self._host_step = int(state["step"])
+
+    def _host_state_copy(self) -> dict:
+        """A snapshot of the live train state for the sentinel's rollback:
+        every tensor cloned (Adam's per-parameter ``step`` included) where
+        it lives, so the snapshot stays on the card (~13 MB of parameters
+        and moments) and no later step changes it."""
+        return copy.deepcopy(self.train_state())
+
+    def _own_device_state(self, snapshot: dict) -> None:
+        """Roll the live state back to ``snapshot`` (a copy of it: the
+        snapshot stays valid for another rollback). ``_host_step`` keeps
+        counting dispatches."""
+        self.load_train_state(snapshot)

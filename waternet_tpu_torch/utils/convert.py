@@ -76,3 +76,46 @@ def vgg_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
             np.asarray(conv["bias"], dtype=np.float32).copy()
         )
     return sd
+
+
+def train_state_from_jax(params, opt_state, step, config=None) -> dict:
+    """The JAX package's train state -> the port's, in the format of
+    :meth:`waternet_tpu_torch.training.trainer.TrainingEngine.train_state`.
+
+    Takes numpy arrays, as ``jax.device_get(engine.state)`` returns them:
+    ``params``, the optax ``opt_state`` of ``optax.adam`` over the staircase
+    schedule (a ``ScaleByAdamState`` with ``count``, ``mu`` and ``nu``, and
+    the schedule's state with its ``count``) and ``step``. ``mu``/``nu``
+    become Adam's ``exp_avg``/``exp_avg_sq``, laid out like the parameters
+    (HWIO -> OIHW, as :func:`state_dict_from_jax`; no value changes), with
+    Adam's ``step`` from the Adam count; the ``LambdaLR`` is put at the
+    schedule's count, its learning rate what an uninterrupted run would
+    have there. ``config`` (a ``TrainConfig``; the default one if None)
+    gives the schedule's lr, lr_step and lr_gamma."""
+    from waternet_tpu_torch.models import WaterNet
+    from waternet_tpu_torch.training.trainer import TrainConfig, make_optimizer
+
+    adam = next(s for s in opt_state if hasattr(s, "mu"))
+    sched_count = next((s.count for s in opt_state if hasattr(s, "count") and not hasattr(s, "mu")), adam.count)
+    model = WaterNet()
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    opt, sched = make_optimizer(model.parameters(), config or TrainConfig())
+    mu, nu = state_dict_from_jax(adam.mu), state_dict_from_jax(adam.nu)
+    for name, p in model.named_parameters():
+        opt.state[p] = {
+            "step": torch.tensor(float(adam.count), dtype=torch.float32),
+            "exp_avg": mu[name],
+            "exp_avg_sq": nu[name],
+        }
+    k = int(sched_count)
+    lrs = [base * lam(k) for base, lam in zip(sched.base_lrs, sched.lr_lambdas)]
+    for group, lr in zip(opt.param_groups, lrs):
+        group["lr"] = lr
+    # The scheduler's own bookkeeping after k steps past its initial one.
+    sched.last_epoch, sched._step_count, sched._last_lr = k, k + 1, lrs
+    return {
+        "model": model.state_dict(),
+        "optimizer": opt.state_dict(),
+        "scheduler": sched.state_dict(),
+        "step": int(step),
+    }

@@ -18,3 +18,14 @@ def next_run_dir(base: Path, name: str | None = None) -> Path:
         int(p.stem) for p in base.glob("*") if p.is_dir() and p.stem.isdecimal()
     ]
     return base / (str(max(nums) + 1) if nums else "0")
+
+
+def run_dirs_desc(base: Path) -> list[Path]:
+    """All numbered run dirs under ``base``, newest (highest) first:
+    ``--resume auto`` walks them, so a latest run that holds nothing
+    restorable falls back to earlier runs."""
+    base = Path(base)
+    if not base.exists():
+        return []
+    nums = sorted((int(p.stem) for p in base.glob("*") if p.is_dir() and p.stem.isdecimal()), reverse=True)
+    return [base / str(n) for n in nums]
