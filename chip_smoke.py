@@ -135,7 +135,34 @@ Phases; any failure exits non-zero, and nothing below is caught:
    step (32), every heartbeat's last record names its end (``done``,
    ``preempted``), the metrics are finite, ``mfu_live`` is in (0, 1] and
    ``hbm_peak_bytes`` > 0, and the resumed epoch's Chrome trace names
-   ``clahe_tile_lut_kernel`` and ``clahe_lut_blend_kernel``.
+   ``clahe_tile_lut_kernel`` and ``clahe_lut_blend_kernel``;
+12. S, serving (``waternet_tpu_torch/serving/``) on 24 images, each of
+   its own shape (the bench's ``_serving_population(24, 540)``: ~540x720,
+   ~810x1080 and ~1080x1440, plus jitter), ``teacher.npz``, the ladder
+   ``derive_buckets(..., max_buckets=3)``, 4 slots a batch. S1, fp32 with
+   host preprocessing: an in-process ``ServingServer`` on
+   ``127.0.0.1:0`` driven by ``run_load`` at concurrency 8, each kernel's
+   launches counted from 0 around the run (none: the bucketed path runs
+   no kernel); every response byte-equal to ``enhance_padded`` on the
+   same engine, ``compiles`` 3 with no cold dispatch; the interior
+   (farther than 13 px from the pad seam) against ``engine.enhance`` at
+   the native shape, its max difference and share printed, and the seam
+   band's PSNR; warmup, images/s, p50/p99, occupancy, padding overhead
+   and the serving trace's per-request spans (median and mean ms of
+   decode, queue wait, coalesce, launch, device, d2h, response write). S2, bf16 with ``--device-preprocess``: the masked
+   transforms' native regions bit for bit against ``transform_batch``
+   (the CUDA CLAHE kernels) at 4 shapes; the 24 requests and one
+   oversize request (larger than every bucket, served at its native
+   shape through ``enhance_async``), the launches counted from 0 around
+   them (one ``tile_lut``, one ``clahe_lut_blend``: the fallback's); the
+   answers within 3 levels of S1's (more than one on at most 1%) beyond
+   13 px from the pad seam, the seam band's gap printed (there the two
+   paths pad differently by design). S3,
+   ``replica_crash@1`` and ``nan_output@1`` on a 1-replica pool over one
+   batch of 4: the answers byte-equal to S1's, the pool's counters
+   equal to the same plan's on the CPU port. Then ``python -m
+   waternet_tpu_torch.bench --config serve`` and ``--config serve_http``
+   at their defaults.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card line and
 the ``{"ok": true, "device": ...}`` result. Inputs are made with numpy
@@ -212,6 +239,11 @@ BF16_VS_CPU = (1, 96, 128)
 RESUME_R1 = dict(synthetic=64, val_size=8, epochs=2, batch=8, hw=256, sigterm=10, nan=4)
 RESUME_R2 = dict(pairs=80, epochs=2, batch=16, hw=112, workers=2, sigterm=8)
 RESUME_R4 = dict(sigterm=20)
+# Phase 12 (S, serving): the population, its ladder, the slots a batch and
+# the load's concurrency; the S2 and S3 bounds.
+SERVE = dict(n=24, base=540, max_buckets=3, max_batch=4, concurrency=8)
+BF16_LEVELS = 3  # the bf16 engine's bound: within 3 levels, more than 1 on <= 1%
+FAULT_COUNTERS = ("requests", "retried", "nan_outputs", "quarantines", "reintegrations")
 WATERNET_MAC_PER_PX = 1_089_824
 TRAIN_KEYS = ("mse", "ssim", "psnr", "perceptual_loss", "loss")
 VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -935,13 +967,16 @@ def run_t5_exact(torch, dev, card) -> None:
 
 BENCH_METRIC = {(): "uieb_train_images_per_sec_per_chip",
                 ("--config", "train_fullres"): "train_fullres_devcache_images_per_sec",
-                ("--config", "video"): "video_1080p_frames_per_sec_per_chip"}
+                ("--config", "video"): "video_1080p_frames_per_sec_per_chip",
+                ("--config", "serve"): "mixed_res_dir_images_per_sec",
+                ("--config", "serve_http"): "http_images_per_sec"}
 
 
 def run_bench(card, *args) -> dict:
     """``python -m waternet_tpu_torch.bench`` as a subprocess; it must exit
     0 and end in its contract line, with a finite positive value and
-    ``mfu`` in (0, 1]. Echoes every line; returns the last."""
+    ``mfu`` in (0, 1] where the line has one. Echoes every line; returns
+    the last."""
     cmd = [sys.executable, "-m", "waternet_tpu_torch.bench", "--device", "cuda", *args]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
@@ -954,7 +989,8 @@ def run_bench(card, *args) -> dict:
     want = BENCH_METRIC[args]
     check(last["metric"] == want, f"bench {args}: last line {last['metric']}")
     check(math.isfinite(last["value"]) and last["value"] > 0, f"bench {args}: value {last['value']}")
-    check(last["mfu"] is not None and 0 < last["mfu"] <= 1, f"bench {args}: mfu {last['mfu']}")
+    if "mfu" in last:
+        check(last["mfu"] is not None and 0 < last["mfu"] <= 1, f"bench {args}: mfu {last['mfu']}")
     print(json.dumps({"run": "bench " + " ".join(args), "cli_wall_s": wall}), flush=True)
     return last
 
@@ -1450,6 +1486,254 @@ def run_resume_cli(torch, card) -> dict:
     return totals
 
 
+def _png(rgb) -> bytes:
+    import cv2
+
+    ok, buf = cv2.imencode(".png", np.ascontiguousarray(rgb[:, :, ::-1]))
+    check(ok, "PNG encode failed")
+    return buf.tobytes()
+
+
+def _unpng(body) -> np.ndarray:
+    import cv2
+
+    bgr = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+    check(bgr is not None, "a response is not a decodable PNG")
+    return cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+
+
+def span_breakdown() -> dict:
+    """Per span name of the serving trace (``waternet_tpu_torch.obs.
+    trace``): how many, and their median and mean ms. The serving spans
+    are per request: decode, queue_wait, coalesce, replica_launch (host
+    preprocessing and the enqueue of its batch), device (launch start to
+    the readback's event), d2h, response_write, serve (submit to result)."""
+    from waternet_tpu_torch.obs import trace
+
+    events, _ = trace.recorder().snapshot()
+    by_name = {}
+    for name, _cat, ph, _t0, dur, _tid, _args in events:
+        if ph == "X":
+            by_name.setdefault(name, []).append(dur * 1e3)
+    return {name: {"n": len(v), "median_ms": statistics.median(v), "mean_ms": statistics.fmean(v)}
+            for name, v in sorted(by_name.items())}
+
+
+def serve_over_http(engine, ladder, images, extra=()):
+    """Serve ``images`` (then each of ``extra``, one by one) through an
+    in-process ``ServingServer`` on an ephemeral port, driven by
+    ``run_load`` with the serving trace armed; each kernel's launches are
+    counted from 0 around the requests. -> (answers in image order, load
+    report, stats, launches, warmup s, :func:`span_breakdown` of the
+    images' requests)."""
+    from waternet_tpu_torch.obs import trace
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.serving.loadgen import run_load
+    from waternet_tpu_torch.serving.server import ServingServer
+
+    n = len(images)
+    server = ServingServer(engine, ladder, max_batch=SERVE["max_batch"], max_wait_ms=5.0, replicas=1,
+                           max_queue=256)
+    t0 = time.perf_counter()
+    server.start_background(timeout=60)
+    try:
+        server.wait_ready(timeout=300)
+        warmup_s = time.perf_counter() - t0
+        kernels.reset_launches()
+        trace.reset()
+        trace.enable()
+        try:
+            rep = run_load(server.url, [_png(im) for im in images], concurrency=SERVE["concurrency"],
+                           total=n, keep_bodies=True)
+        finally:
+            trace.disable()
+        spans = span_breakdown()
+        extra_reps = [run_load(server.url, [_png(im)], concurrency=1, total=1, keep_bodies=True)
+                      for im in extra]
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        server.request_drain()
+        code = server.join(timeout=300)
+    check(code == 0, f"S: the server's drain exited {code}")
+    check(rep["ok"] == n and rep["errors"] == 0, f"S: load report {rep}")
+    answers = [None] * n
+    for idx, status, body in rep["bodies"]:
+        check(status == 200, f"S: request {idx} got {status}")
+        answers[idx] = _unpng(body)
+    for r in extra_reps:
+        check(r["ok"] == 1, f"S: extra request {r}")
+        answers.append(_unpng(r["bodies"][0][2]))
+    return answers, rep, server.stats.summary(), launches, warmup_s, spans
+
+
+def fault_counters(engine, images, bucket, plan, wait_s=60.0) -> tuple:
+    """One batch of ``images`` through a 1-replica pool under ``plan`` ->
+    (answers, the pool's counters once the replica is healthy again). The
+    pool's supervisor is driven by hand after the batch (its own scans
+    are an hour apart), as tests/test_torch_serving.py drives it, so the
+    quarantine always follows the re-dispatched batch."""
+    from waternet_tpu_torch.resilience import faults
+    from waternet_tpu_torch.serving import BucketLadder, DynamicBatcher, SupervisionConfig
+
+    b = DynamicBatcher(engine, BucketLadder([bucket]), max_batch=len(images), max_wait_ms=5,
+                       supervision=SupervisionConfig(scan_interval_sec=3600, rewarm_backoff_sec=0.01))
+    try:
+        faults.install(faults.FaultPlan.parse(plan))
+        outs = b.map_ordered(images)
+        faults.clear()
+        deadline = time.monotonic() + wait_s
+        while time.monotonic() < deadline and not (
+            b.stats.summary()["reintegrations"] >= 1
+            and all(s == "healthy" for s in b.health()["quality"].values())
+        ):
+            b._pool._supervise_once()
+            time.sleep(0.01)
+        s = b.stats.summary()
+    finally:
+        faults.clear()
+        b.close()
+    return outs, {k: s[k] for k in FAULT_COUNTERS}
+
+
+def run_serving(torch, dev, card) -> dict:
+    """Phase 12 (S): the serving path on the card. Returns the launches
+    of S1, S2 and S3, each counted from 0 around its requests."""
+    from waternet_tpu_torch.bench import _serving_population
+    from waternet_tpu_torch.inference_engine import InferenceEngine
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.ops.masked import transform_masked_batch
+    from waternet_tpu_torch.ops.transform import transform_batch
+    from waternet_tpu_torch.serving import RECEPTIVE_RADIUS, derive_buckets
+    from waternet_tpu_torch.utils.tensor import to_device
+
+    images, shapes = _serving_population(SERVE["n"], SERVE["base"])
+    ladder = derive_buckets(shapes, max_buckets=SERVE["max_buckets"])
+    slots = SERVE["max_batch"]
+    launches = {}
+
+    # S1: fp32, host preprocessing.
+    engine = InferenceEngine(weights=WEIGHTS, device=dev)
+    s1, rep, stats, launches["serving_S1"], warmup_s, spans1 = serve_over_http(engine, ladder, images)
+    check(launches["serving_S1"] == NO_LAUNCH, f"S1 launches {launches['serving_S1']}")
+    check(stats["compiles"] == len(ladder) and stats["fallback_native_shapes"] == 0,
+          f"S1 compiles {stats['compiles']}, fallbacks {stats['fallback_native_shapes']}")
+    check(engine.cold_dispatches == 0, f"S1: {engine.cold_dispatches} cold dispatches")
+    r = RECEPTIVE_RADIUS
+    interior_max, interior_diff_px, interior_px, seam_psnr = 0, 0, 0, []
+    for im, got in zip(images, s1):
+        h, w = im.shape[:2]
+        want = engine.enhance_padded([im], ladder.bucket_for(h, w), n_slots=slots)[0, :h, :w]
+        check(np.array_equal(got, want), f"S1: a {h}x{w} response differs from enhance_padded")
+        native = engine.enhance(im[None])[0]
+        d = np.abs(got.astype(np.int16) - native.astype(np.int16))
+        interior_max = max(interior_max, int(d[: h - r, : w - r].max()))
+        interior_diff_px += int((d[: h - r, : w - r] > 0).sum())
+        interior_px += d[: h - r, : w - r].size
+        band = np.ones((h, w), bool)
+        band[: h - r, : w - r] = False
+        mse = float((d[band].astype(np.float64) ** 2).mean())
+        seam_psnr.append(10 * np.log10(255.0**2 / max(mse, 1e-12)))
+    check(engine.cold_dispatches == 0, "S1: enhance_padded met a cold shape")
+    print(json.dumps({
+        "run": "S1 serve fp32 host-preprocess", "images": len(images), "buckets": ladder.describe(),
+        "max_batch": slots, "concurrency": SERVE["concurrency"], "warmup_sec": warmup_s,
+        "http_images_per_sec": rep["images_per_sec"], "latency_ms": rep["latency_ms"],
+        "batch_occupancy": stats["batch_occupancy"], "padding_overhead": stats["padding_overhead"],
+        "compiles": stats["compiles"], "cold_dispatches": engine.cold_dispatches,
+        "launches": launches["serving_S1"], "equals_enhance_padded": True,
+        "interior_vs_native": {"max_abs_diff": interior_max,
+                               "share_differing": interior_diff_px / interior_px},
+        "seam_psnr_db_min": min(seam_psnr), "batches": stats["batches"],
+        "replica_busy_sec": stats["per_replica"][0]["busy_sec"], "spans": spans1, "card": card,
+    }), flush=True)
+
+    # S2: bf16, device preprocessing; the masked transforms first.
+    engine2 = InferenceEngine(weights=WEIGHTS, device_preprocess=True, device=dev, dtype=torch.bfloat16)
+    for k in range(4):
+        im = images[k]
+        h, w = im.shape[:2]
+        canvas, hw = engine2.pad_raw_to_bucket([im], ladder.bucket_for(h, w))
+        masked = transform_masked_batch(to_device(torch.from_numpy(canvas), dev),
+                                        to_device(torch.from_numpy(hw), dev))
+        native = transform_batch(to_device(torch.from_numpy(im[None]), dev))
+        for name, m, n in zip(("wb", "gc", "he"), masked, native):
+            check(torch.equal(m[0, :h, :w], n[0]), f"S2: masked {name} != transform_batch at {h}x{w}")
+    print(json.dumps({"run": "S2 masked transforms", "shapes": [list(im.shape[:2]) for im in images[:4]],
+                      "equal_to_transform_batch": True, "card": card}), flush=True)
+    bh = max(b[0] for b in ladder) + 8
+    bw = max(b[1] for b in ladder) + 8
+    oversize = np.random.default_rng(SEED + 12).integers(0, 256, (bh, bw, 3), dtype=np.uint8)
+    s2, rep2, stats2, launches["serving_S2"], warmup2_s, spans2 = serve_over_http(
+        engine2, ladder, images, [oversize])
+    want = dict(NO_LAUNCH, tile_lut=1, clahe_lut_planes=1)
+    check(launches["serving_S2"] == want, f"S2 launches {launches['serving_S2']}, want {want}")
+    check(stats2["fallback_native_shapes"] == 1 and stats2["compiles"] == len(ladder) + 1,
+          f"S2 fallbacks {stats2['fallback_native_shapes']}, compiles {stats2['compiles']}")
+    check(engine2.cold_dispatches == 0, f"S2: {engine2.cold_dispatches} cold dispatches")
+    check(s2[-1].shape == oversize.shape and s2[-1].std() > 0, "S2: the oversize answer")
+    # Within 13 px of the pad seam the two paths see other pad content by
+    # design (the host pads the transformed image, the device equalizes
+    # the padded canvas: ops/masked.py), so the bf16 bound holds on the
+    # interior and the seam band's gap is printed beside it.
+    d, seam = [], []
+    for a, b in zip(s2[:-1], s1):
+        h, w = b.shape[:2]
+        diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        d.append(diff[: h - r, : w - r].ravel())
+        band = np.ones((h, w), bool)
+        band[: h - r, : w - r] = False
+        seam.append(diff[band].ravel())
+    d, seam = np.concatenate(d), np.concatenate(seam)
+    print(json.dumps({
+        "run": "S2 serve bf16 device-preprocess", "warmup_sec": warmup2_s,
+        "http_images_per_sec": rep2["images_per_sec"], "latency_ms": rep2["latency_ms"],
+        "batch_occupancy": stats2["batch_occupancy"], "padding_overhead": stats2["padding_overhead"],
+        "compiles": stats2["compiles"], "fallback_native_shapes": stats2["fallback_native_shapes"],
+        "oversize": list(oversize.shape[:2]), "launches": launches["serving_S2"],
+        "batches": stats2["batches"], "replica_busy_sec": stats2["per_replica"][0]["busy_sec"],
+        "spans": spans2,
+        "vs_S1_interior": {"max_abs_diff": int(d.max()), "share_over_1": float((d > 1).mean())},
+        "vs_S1_seam_band": {"max_abs_diff": int(seam.max()), "share_over_1": float((seam > 1).mean())},
+        "card": card,
+    }), flush=True)
+    check(d.max() <= BF16_LEVELS and (d > 1).mean() <= 0.01,
+          f"S2 vs S1 interior: {int(d.max())} levels, {(d > 1).mean():.4%} over one")
+    del engine2
+
+    # S3: a fault plan on the card against the same plan on the CPU port.
+    bucket = ladder.buckets[0]
+    idx = [i for i, im in enumerate(images) if ladder.bucket_for(*im.shape[:2]) == bucket][:slots]
+    cpu = InferenceEngine(weights=WEIGHTS, device="cpu")
+    small = [np.ascontiguousarray(images[i][:40, :48]) for i in idx]
+    faults_line = {}
+    for plan in ("replica_crash@1", "nan_output@1"):
+        kernels.reset_launches()
+        outs, card_counts = fault_counters(engine, [images[i] for i in idx], bucket, plan)
+        torch.cuda.synchronize()
+        launches[f"serving_S3_{plan.split('@')[0]}"] = dict(kernels.LAUNCHES)
+        for i, o in zip(idx, outs):
+            check(np.array_equal(o, s1[i]), f"S3 {plan}: an answer differs from S1's")
+        _, cpu_counts = fault_counters(cpu, small, (40, 48), plan)
+        check(card_counts == cpu_counts, f"S3 {plan}: card counters {card_counts}, CPU {cpu_counts}")
+        faults_line[plan] = card_counts
+    check(all(v == NO_LAUNCH for k, v in launches.items() if k.startswith("serving_S3")),
+          f"S3 launches {launches}")
+    print(json.dumps({"run": "S3 fault plans", "batch": len(idx), "bucket": list(bucket),
+                      "counters": faults_line, "equal_to_cpu_port": True, "answers_equal_S1": True,
+                      "card": card}), flush=True)
+    del engine, cpu
+    torch.cuda.empty_cache()
+
+    for config in ("serve", "serve_http"):
+        line = run_bench(card, "--config", config)
+        compiles = line["compiles_bucketed" if config == "serve" else "compiles"]
+        check(compiles == len(line["buckets"]) and line["cold_dispatches"] == 0,
+              f"bench {config}: compiles {compiles}, cold {line['cold_dispatches']}")
+        if config == "serve_http":
+            check(line["accounted"] is True, "bench serve_http: not accounted")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1744,6 +2028,10 @@ def main() -> int:
     launches["resume_R3"] = run_resume_nan(torch, dev, card)
     launches["resume_R4"] = run_resume_cli(torch, card)
     lap("11 R resume")
+
+    # 12. S: serving.
+    launches.update(run_serving(torch, dev, card))
+    lap("12 S serving")
     print(json.dumps({"phase_s": phase_s, "total_s": sum(phase_s.values())}), flush=True)
 
     kernels_line = []

@@ -216,7 +216,8 @@ for m in pkgutil.walk_packages(waternet_tpu_torch.__path__, "waternet_tpu_torch.
     importlib.import_module(m.name)
 import chip_smoke
 for name in ("data.pipeline", "data.uieb", "training.metrics_nr", "score", "data.video",
-             "metrics.flicker", "inference"):
+             "metrics.flicker", "inference", "serving.server", "serving.batcher",
+             "serving.replicas", "ops.masked"):
     assert "waternet_tpu_torch." + name in sys.modules, name
 bad = sorted(
     m for m in sys.modules

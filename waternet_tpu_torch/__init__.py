@@ -7,9 +7,10 @@ layout, (N, H, W, 3) uint8 in and out; the model permutes to NCHW inside.
 
 Entry points (:class:`~waternet_tpu_torch.inference_engine.InferenceEngine`,
 :func:`~waternet_tpu_torch.hub.waternet`, ``python -m
-waternet_tpu_torch.inference``) run on ``device="cuda"`` unless the caller
-asks for ``"cpu"``. The two CLAHE kernels on the serving path are CUDA C++
-for ``sm_90a`` (``csrc/clahe.cu``), built with nvcc at first use; on a CPU
-tensor their wrappers run the plain PyTorch versions instead
-(:mod:`waternet_tpu_torch.ops.kernels`).
+waternet_tpu_torch.inference``, ``python -m
+waternet_tpu_torch.serving.server``, ``train``, ``score``, ``bench``) run
+on ``device="cuda"`` unless the caller asks for ``"cpu"``. The four
+kernels are CUDA C++ for ``sm_90a`` (``csrc/clahe.cu``, ``csrc/codec.cu``),
+built with nvcc at first use; on a CPU tensor their wrappers run the
+plain PyTorch versions instead (:mod:`waternet_tpu_torch.ops.kernels`).
 """

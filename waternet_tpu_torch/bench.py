@@ -3,6 +3,8 @@
     python -m waternet_tpu_torch.bench                          # three lines
     python -m waternet_tpu_torch.bench --config train_fullres
     python -m waternet_tpu_torch.bench --config video [--batch-size 4]
+    python -m waternet_tpu_torch.bench --config serve
+    python -m waternet_tpu_torch.bench --config serve_http
     python -m waternet_tpu_torch.bench --device cpu             # a smoke run
 
 The JAX package's root ``bench.py`` training lines, ported, on synthetic
@@ -38,6 +40,24 @@ uploading the batch and reading back the previous uint8 result, as the
 video CLI runs. ``mfu`` is the analytic WaterNet FLOPs of the frames over
 the time and the card's bf16 peak. ``WATERNET_QUANT=1`` (the JAX bench's
 int8 arm) exits 2: the int8 path is Queue A item 7.
+
+``--config serve`` is the JAX bench's ``mixed_res_dir_images_per_sec``:
+a shuffled population of ``WATERNET_BENCH_SERVE_IMAGES`` (48) images,
+each of its own shape, in three classes around ``WATERNET_BENCH_HW``
+(x1, x1.5, x2, plus jitter), served through the shape-bucketed
+``DynamicBatcher`` (``WATERNET_BENCH_SERVE_BUCKETS`` (3) derived buckets,
+``WATERNET_BENCH_SERVE_BATCH`` (8) slots) against the ``--exact-shapes``
+``ExactShapeBatcher`` on a fresh engine, fp32 with host preprocessing and
+the port's seeded init, readback included. ``warmup_sec`` is the pool's
+warmup, paid once per server; ``compiles_*`` count warmed entries and
+first-met shapes (the port's counterpart of XLA compiles).
+``--config serve_http`` is ``http_images_per_sec``: an in-process
+``ServingServer`` on an ephemeral port driven by ``serving/loadgen.py``
+over real sockets, a serial pass, a closed-loop pass at
+``WATERNET_BENCH_SERVE_CONCURRENCY`` (2 x batch) workers (the value) and
+a 2x overload pass against a tight admission watermark; ``accounted``
+pins that every request ended as ok, shed, deadline or error on both the
+client's and the server's count.
 
 ``--config train_fullres`` is the full-res device-cache A/B at 256 x 256:
 the raw cache (with its tables) runs only where the preflight budgeter
@@ -81,9 +101,9 @@ BASELINE_IMG_PER_SEC = 12.0
 
 #: The JAX bench's other configs, and the ROADMAP item that ports what they drive.
 UNPORTED = {
-    **{name: "Queue A item 6 (serving)" for name in (
-        "serve", "serve_multi", "serve_http", "serve_adaptive", "serve_chaos", "serve_fleet",
-        "stream", "stream_reuse", "obs")},
+    **{name: "Queue A item 6, its next part (streams, fleet, the adaptive and chaos A/Bs)"
+       for name in ("serve_adaptive", "serve_chaos", "serve_fleet", "stream", "stream_reuse", "obs")},
+    "serve_multi": "Queue A item 8 (multi-GPU)",
     "tiers": "Queue A item 7 (fast tier)",
     "train_chaos": "Queue A items 5 (resilience) and 8 (its supervisor needs multi-GPU)",
 }
@@ -396,12 +416,190 @@ def bench_video(dev, batch: int = 4) -> dict:
     }
 
 
+def _serving_env_defaults(n_images, max_batch, max_buckets):
+    """The serve configs' shared workload knobs: explicit args win, else
+    the ``WATERNET_BENCH_SERVE_*`` env defaults."""
+    return (
+        _env_int("WATERNET_BENCH_SERVE_IMAGES", 48) if n_images is None else n_images,
+        _env_int("WATERNET_BENCH_SERVE_BATCH", 8) if max_batch is None else max_batch,
+        _env_int("WATERNET_BENCH_SERVE_BUCKETS", 3) if max_buckets is None else max_buckets,
+    )
+
+
+def _serving_population(n_images, base):
+    """The serving benches' shared workload (the JAX bench's): three
+    resolution classes with per-image jitter, deduplicated so every image
+    really is its own shape, shuffled so shapes interleave."""
+    rng = np.random.default_rng(0)
+    shapes = []
+    seen = set()
+    for i in range(n_images):
+        scale = (1.0, 1.5, 2.0)[i % 3]
+        h = int(base * scale) + int(rng.integers(0, 8))
+        w = int(base * scale * 4 // 3) + int(rng.integers(0, 8))
+        while (h, w) in seen:
+            w += 1
+        seen.add((h, w))
+        shapes.append((h, w))
+    rng.shuffle(shapes)
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in shapes]
+    return images, shapes
+
+
+def _device_kind(dev) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)
+
+
+def bench_serving(dev, n_images=None, max_batch=None, max_buckets=None, base_hw=None) -> dict:
+    """``mixed_res_dir_images_per_sec``: the bucketed batcher against the
+    exact-shape batcher on one population, end to end (host preprocessing
+    and readback included; warmup reported apart)."""
+    from waternet_tpu_torch.hub import init_state_dict
+    from waternet_tpu_torch.inference_engine import InferenceEngine
+    from waternet_tpu_torch.serving import DynamicBatcher, ExactShapeBatcher, derive_buckets
+
+    n_images, max_batch, max_buckets = _serving_env_defaults(n_images, max_batch, max_buckets)
+    base = _env_int("WATERNET_BENCH_HW", 112) if base_hw is None else base_hw
+    params = init_state_dict(0)
+    images, shapes = _serving_population(n_images, base)
+    ladder = derive_buckets(shapes, max_buckets=max_buckets)
+
+    engine = InferenceEngine(params=params, device=dev)
+    t0 = time.perf_counter()
+    batcher = DynamicBatcher(engine, ladder, max_batch=max_batch)
+    warmup_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        outs = batcher.map_ordered(images)
+        bucketed_s = time.perf_counter() - t0
+    finally:
+        batcher.close()
+    if [o.shape for o in outs] != [im.shape for im in images]:
+        raise RuntimeError("the bucketed batcher returned other shapes than it was given")
+    summary = batcher.stats.summary()
+
+    # A fresh engine for the A/B: the exact-shape path meets every shape cold.
+    engine_exact = InferenceEngine(params=params, device=dev)
+    exact = ExactShapeBatcher(engine_exact, max_batch)
+    t0 = time.perf_counter()
+    done = sum(len(exact.push(i, im)) for i, im in enumerate(images))
+    done += len(exact.flush())
+    exact_s = time.perf_counter() - t0
+    if done != n_images:
+        raise RuntimeError(f"the exact-shape batcher returned {done} of {n_images} images")
+
+    bucketed_ips = n_images / bucketed_s
+    exact_ips = n_images / exact_s
+    return {
+        "metric": "mixed_res_dir_images_per_sec",
+        "value": bucketed_ips,
+        "unit": "images/sec/chip",
+        "vs_baseline": None,
+        "exact_shapes_images_per_sec": exact_ips,
+        "speedup_vs_exact": bucketed_ips / exact_ips,
+        "buckets": ladder.describe(),
+        "batch_occupancy": summary["batch_occupancy"],
+        "padding_overhead": summary["padding_overhead"],
+        "compiles_bucketed": summary["compiles"],
+        "compiles_exact": exact.stats.compiles,
+        "cold_dispatches": engine.cold_dispatches,
+        "latency_ms": summary["latency_ms"],
+        "warmup_sec": warmup_s,
+        "n_images": n_images,
+        "unique_shapes": len(set(shapes)),
+        "max_batch": max_batch,
+        "device_kind": _device_kind(dev),
+    }
+
+
+def bench_serving_http(dev, n_images=None, max_batch=None, max_buckets=None, base_hw=None,
+                       concurrency=None, requests_per_phase=None) -> dict:
+    """``http_images_per_sec``: the front door end to end over sockets, in
+    three phases (serial, closed loop, 2x overload against a tight
+    watermark), with the accounting cross-checked against the server."""
+    import cv2
+
+    from waternet_tpu_torch.hub import init_state_dict
+    from waternet_tpu_torch.inference_engine import InferenceEngine
+    from waternet_tpu_torch.serving import derive_buckets
+    from waternet_tpu_torch.serving.loadgen import run_load
+    from waternet_tpu_torch.serving.server import ServingServer
+
+    n_images, max_batch, max_buckets = _serving_env_defaults(n_images, max_batch, max_buckets)
+    base = _env_int("WATERNET_BENCH_HW", 112) if base_hw is None else base_hw
+    concurrency = (_env_int("WATERNET_BENCH_SERVE_CONCURRENCY", 2 * max_batch)
+                   if concurrency is None else concurrency)
+    n_req = (_env_int("WATERNET_BENCH_SERVE_REQUESTS", 2 * n_images)
+             if requests_per_phase is None else requests_per_phase)
+
+    images, shapes = _serving_population(n_images, base)
+    ladder = derive_buckets(shapes, max_buckets=max_buckets)
+    payloads = [cv2.imencode(".png", im[:, :, ::-1])[1].tobytes() for im in images]
+    engine = InferenceEngine(params=init_state_dict(0), device=dev)
+    server = ServingServer(
+        engine, ladder, max_batch=max_batch, max_wait_ms=5.0, replicas=1,
+        # Tight bound so the 2x phase sheds: ~2 batches of undispatched work.
+        max_queue=4 * max_batch, admit_watermark=2 * max_batch,
+    )
+    t0 = time.perf_counter()
+    server.start_background()
+    try:
+        server.wait_ready()
+        warmup_s = time.perf_counter() - t0
+        unloaded = run_load(server.url, payloads, concurrency=1, total=min(n_req, 16))
+        loaded = run_load(server.url, payloads, concurrency=concurrency, total=n_req)
+        overload = run_load(server.url, payloads, concurrency=2 * concurrency, total=n_req)
+    finally:
+        server.request_drain()
+        code = server.join()
+    if code != 0:
+        raise RuntimeError(f"the server's drain ended with exit code {code}")
+    summary = server.stats.summary()
+    phases = (unloaded, loaded, overload)
+    accounted = (
+        summary["requests"] == sum(p["ok"] for p in phases)
+        and summary["shed_count"] == sum(p["shed"] for p in phases)
+        and summary["deadline_expired"] == sum(p["deadline_expired"] for p in phases)
+        and all(p["errors"] == 0 for p in phases)
+        and all(p["conn_reset"] == 0 for p in phases)
+    )
+    return {
+        "metric": "http_images_per_sec",
+        "value": loaded["images_per_sec"],
+        "unit": "images/sec",
+        "vs_baseline": None,
+        "p50_ms": loaded["latency_ms"]["p50"],
+        "p99_ms": loaded["latency_ms"]["p99"],
+        "p99_unloaded_ms": unloaded["latency_ms"]["p99"],
+        "shed_rate_at_2x": overload["shed"] / overload["sent"] if overload["sent"] else 0.0,
+        "images_per_sec_at_2x": overload["images_per_sec"],
+        "p99_ms_at_2x": overload["latency_ms"]["p99"],
+        "accounted": bool(accounted),
+        "shed_count": summary["shed_count"],
+        "deadline_expired": summary["deadline_expired"],
+        "queue_depth_max": summary["queue_depth_max"],
+        "batch_occupancy": summary["batch_occupancy"],
+        "padding_overhead": summary["padding_overhead"],
+        "compiles": summary["compiles"],
+        "cold_dispatches": engine.cold_dispatches,
+        "buckets": ladder.describe(),
+        "warmup_sec": warmup_s,
+        "concurrency": concurrency,
+        "requests_per_phase": n_req,
+        "n_images": n_images,
+        "max_batch": max_batch,
+        "device_kind": _device_kind(dev),
+    }
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--config", default="train", choices=["train", "train_fullres", "video", *UNPORTED],
+    p.add_argument("--config", default="train",
+                   choices=["train", "train_fullres", "video", "serve", "serve_http", *UNPORTED],
                    help="train (default: the three training lines), train_fullres (the 256x256 "
-                   "device-cache codec A/B) or video (1080p bf16 inference); the JAX bench's other "
-                   "configs are not ported yet.")
+                   "device-cache codec A/B), video (1080p bf16 inference), serve (bucketed vs "
+                   "exact-shape directory serving) or serve_http (the HTTP front door); the JAX "
+                   "bench's other configs are not ported yet.")
     p.add_argument("--batch-size", type=int, default=4, help="Frames a device batch (--config video).")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'.")
     args = p.parse_args(argv)
@@ -424,6 +622,12 @@ def main(argv=None) -> int:
         return 0
     if args.config == "train_fullres":
         print(json.dumps(bench_train_fullres(dev)), flush=True)
+        return 0
+    if args.config == "serve":
+        print(json.dumps(bench_serving(dev)), flush=True)
+        return 0
+    if args.config == "serve_http":
+        print(json.dumps(bench_serving_http(dev)), flush=True)
         return 0
 
     hostfed = os.environ.get("WATERNET_BENCH_HOSTFED", "1") != "0"

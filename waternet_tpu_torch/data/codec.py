@@ -199,9 +199,14 @@ def _decode_dct8(payload, height: int, width: int) -> torch.Tensor:
     return dct8_decode_u8(coef, tables["quant"], tables["idct_m"], height, width)
 
 
-def roundtrip(codec: str, u8: np.ndarray, device="cpu") -> np.ndarray:
+def roundtrip(codec: str, u8: np.ndarray, device="cuda") -> np.ndarray:
     """Host encode -> decode on ``device`` -> host uint8 (the bench's PSNR
-    report). For ``raw`` this is the identity."""
+    report). For ``raw`` this is the identity. ``device`` defaults to CUDA,
+    as every entry point of the port, and raises without it; ``"cpu"``
+    only when asked."""
+    from waternet_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
     u8 = np.asarray(u8, np.uint8)
     payload = {k: torch.from_numpy(v).to(device) for k, v in encode(codec, u8).items()}
     return decode(codec, payload, u8.shape[1], u8.shape[2]).cpu().numpy()

@@ -4,13 +4,25 @@
         --weights tests/fixtures/distill/teacher.npz [--device-preprocess] \\
         [--precision bf16] [--show-split] [--workers N]
 
+    python -m waternet_tpu_torch.inference --source img_dir \\
+        --serve-url http://127.0.0.1:8080     # thin client of a server
+
 Outputs land in ``<output-root>/<name or next number>/`` under the source
 file names (a video as ``<stem>.mp4``), as the JAX package's
-``inference.py`` writes them. Images: consecutive same-shaped images are
-stacked into batches of up to ``--batch-size``, a shape change flushes
-the batch (the JAX CLI's ``--exact-shapes`` path); ``--workers`` threads
-decode ahead of the device, in path order, with the same batches as
-``--workers 0``. Videos (mp4, mpeg, avi): ``--batch-size`` frames a
+``inference.py`` writes them. A directory of images goes through the
+shape-bucketed serving engine by default (``waternet_tpu_torch/
+serving/``, docs/SERVING.md): every image pads up to the smallest bucket
+of a ladder derived from a header-only scan (``--serve-buckets``,
+``--max-buckets``), batches of ``--batch-size`` slots coalesce within
+``--max-wait-ms``, the replica pool (``--serve-replicas``) runs them, the
+outputs are cropped back and written in path order, and the run ends
+with a ``{"serving_stats": {...}}`` line. ``--exact-shapes`` (and a
+single-file source) stacks consecutive same-shaped images into batches
+of up to ``--batch-size`` instead, a shape change flushing the batch.
+``--workers`` threads decode ahead of the device, in path order.
+``--serve-url`` posts each image file to a running server
+(``python -m waternet_tpu_torch.serving.server``) and writes the answers
+in the same layout; it builds no engine. Videos (mp4, mpeg, avi): ``--batch-size`` frames a
 device batch, the tail padded, decoded on a background thread unless
 ``--workers 0``; the run ends with a ``{"video_ingest": {...}}`` line.
 ``--show-split`` writes the left half of the original beside the right
@@ -66,6 +78,38 @@ def parse_args(argv=None):
     )
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'.")
     p.add_argument(
+        "--exact-shapes", action="store_true",
+        help="Directory sources: per-shape batching (consecutive same-shaped images) "
+        "instead of the bucketed serving engine.",
+    )
+    p.add_argument(
+        "--serve-buckets", default="auto",
+        help="Bucket ladder for directory sources: 'auto' (derived from a header-only "
+        "shape scan of the directory) or a comma list like '256,512,1080x1920' (bare N = "
+        "NxN). Pixels beyond the 13 px receptive radius from the pad seam are computed "
+        "from the same values as the native forward's (docs/SERVING.md).",
+    )
+    p.add_argument(
+        "--max-buckets", type=int, default=3,
+        help="Ladder size cap for --serve-buckets auto: more buckets, less padding.",
+    )
+    p.add_argument(
+        "--max-wait-ms", type=float, default=20.0,
+        help="Bucketed serving: flush a partial batch once its oldest image has waited "
+        "this long.",
+    )
+    p.add_argument(
+        "--serve-replicas", default="auto",
+        help="Bucketed serving: replica-pool size, 'auto' (every CUDA card; 1 on the "
+        "CPU) or N. Outputs are byte-identical at any replica count.",
+    )
+    p.add_argument(
+        "--serve-url",
+        help="Thin client: POST each image to this server's /enhance "
+        "(python -m waternet_tpu_torch.serving.server) and write the answers; no "
+        "weights, no engine.",
+    )
+    p.add_argument(
         "--output-root", default=str(_REPO_ROOT / "output"),
         help="Base directory of the numbered run directories.",
     )
@@ -74,6 +118,8 @@ def parse_args(argv=None):
         p.error("--batch-size must be >= 1")
     if args.workers < 0:
         p.error("--workers must be >= 0")
+    if args.max_buckets < 1:
+        p.error("--max-buckets must be >= 1")
     return args
 
 
@@ -124,34 +170,128 @@ def _write_output(savedir: Path, path: Path, bgr, out_rgb, show_split: bool):
 
 
 def run_images(engine, paths, savedir: Path, show_split: bool, batch_size: int, workers: int = 2) -> int:
-    """Enhance ``paths`` in same-shape batches of up to ``batch_size``, in
+    """Enhance ``paths`` in same-shape batches of up to ``batch_size``
+    (:class:`~waternet_tpu_torch.serving.batcher.ExactShapeBatcher`), in
     path order; ``workers`` threads decode ahead (0: inline). Returns the
     images written."""
     from waternet_tpu_torch.data.pipeline import OrderedPipeline
+    from waternet_tpu_torch.serving.batcher import ExactShapeBatcher
 
-    pending = []
+    batcher = ExactShapeBatcher(engine, batch_size)
     written = 0
 
-    def flush():
+    def write_all(results):
         nonlocal written
-        out = engine.enhance(np.stack([rgb for _, _, rgb in pending]))
-        for (path, bgr, _), out_rgb in zip(pending, out):
+        for (path, bgr), out_rgb in results:
             _write_output(savedir, path, bgr, out_rgb, show_split)
-        written += len(pending)
-        pending.clear()
+            written += 1
 
     with OrderedPipeline(_decode_for, paths, workers=workers, name="decode") as pipe:
         for path, bgr, rgb in pipe:
             if bgr is None:
                 print(f"Skipping unreadable image: {path}", file=sys.stderr)
                 continue
-            if pending and rgb.shape != pending[0][2].shape:
-                flush()
-            pending.append((path, bgr, rgb))
-            if len(pending) == batch_size:
-                flush()
-    if pending:
-        flush()
+            write_all(batcher.push((path, bgr), rgb))
+    write_all(batcher.flush())
+    return written
+
+
+def run_images_bucketed(
+    engine, paths, savedir: Path, show_split: bool, batch_size: int, workers: int = 2,
+    buckets: str = "auto", max_wait_ms: float = 20.0, max_buckets: int = 3, replicas="auto",
+):
+    """Enhance a directory through the shape-bucketed serving engine: every
+    image pads up to its bucket and the output crops back, so the stream
+    is served by at most ``len(buckets)`` warmed batch shapes per replica.
+    Outputs are written in path order (byte-identical at any replica
+    count) and the run ends with the serving stats JSON line; returns the
+    stats."""
+    from collections import deque
+
+    from waternet_tpu_torch.data.pipeline import OrderedPipeline
+    from waternet_tpu_torch.serving import DynamicBatcher, resolve_ladder, scan_shapes
+
+    spec = buckets.strip().lower()
+    ladder = resolve_ladder(
+        buckets, shapes=scan_shapes(paths) if spec == "auto" else None, max_buckets=max_buckets,
+    )
+    batcher = DynamicBatcher(engine, ladder, max_batch=batch_size, max_wait_ms=max_wait_ms,
+                             replicas=replicas)
+    print(
+        f"Serving buckets: {', '.join(batcher.ladder.describe())} "
+        f"(batch {batcher.max_batch}, replicas {batcher.n_replicas})"
+    )
+    window: deque = deque()  # (path, bgr, future), path order
+
+    def write_head():
+        path, bgr, fut = window.popleft()
+        _write_output(savedir, path, bgr, fut.result(), show_split)
+
+    try:
+        with OrderedPipeline(_decode_for, paths, workers=workers, name="decode") as pipe:
+            for path, bgr, rgb in pipe:
+                if bgr is None:
+                    print(f"Skipping unreadable image: {path}", file=sys.stderr)
+                    continue
+                window.append((path, bgr, batcher.submit(rgb)))
+                while window and window[0][2].done():
+                    write_head()
+                # Backpressure: a few batches of decoded images and pending
+                # results per replica, never the whole directory.
+                while len(window) >= 4 * batcher.max_batch * batcher.n_replicas:
+                    write_head()
+        batcher.drain()
+        while window:
+            write_head()
+    finally:
+        batcher.close()
+    print(batcher.stats.to_json())
+    return batcher.stats
+
+
+def run_images_remote(url: str, paths, savedir: Path, show_split: bool, max_retries: int = 10) -> int:
+    """Thin client of the HTTP front door: POST each image file's bytes to
+    ``<url>/enhance`` and write the answers in local serving's layout.
+
+    The server decodes the bytes as the local path decodes the file
+    (``cv2.imdecode`` == ``cv2.imread``) and runs the same bucketed pool,
+    and PNG is lossless, so the files are byte for byte what a local run
+    with the server's configuration writes. A 429 (shedding) is retried
+    after ``Retry-After``, up to ``max_retries`` times; any other non-200
+    aborts loudly. Returns the images written."""
+    import http.client
+    import time
+    from urllib.parse import urlparse
+
+    import cv2
+
+    headers = {"Content-Type": "application/octet-stream", "X-Tier": "quality"}
+    u = urlparse(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port or 80, timeout=300)
+    written = 0
+    try:
+        for path in paths:
+            bgr = cv2.imread(str(path))
+            if bgr is None:
+                print(f"Skipping unreadable image: {path}", file=sys.stderr)
+                continue
+            data = path.read_bytes()
+            for _ in range(max_retries + 1):
+                conn.request("POST", "/enhance", body=data, headers=headers)
+                resp = conn.getresponse()
+                body = resp.read()
+                if resp.status != 429:
+                    break
+                time.sleep(min(float(resp.getheader("Retry-After", "1")), 5.0))
+            if resp.status != 200:
+                raise SystemExit(f"server returned {resp.status} for {path.name}: {body[:200]!r}")
+            out_bgr = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+            out = make_split(bgr, out_bgr) if show_split else out_bgr
+            savedir.mkdir(parents=True, exist_ok=True)
+            cv2.imwrite(str(savedir / path.name), out)
+            written += 1
+    finally:
+        conn.close()
     return written
 
 
@@ -217,9 +357,6 @@ def run_video(engine, path: Path, savedir: Path, show_split: bool, batch_size: i
 
 def main(argv=None):
     args = parse_args(argv)
-    import torch
-
-    from waternet_tpu_torch.inference_engine import InferenceEngine
     from waternet_tpu_torch.utils.rundir import next_run_dir
 
     source = Path(args.source)
@@ -233,6 +370,23 @@ def main(argv=None):
     else:
         files = [source]
     print(f"Total images/videos: {len(files)}")
+    images = [f for f in files if f.suffix.lower() in IM_SUFFIXES]
+    if args.serve_url:
+        # Thin client: the running server owns the model.
+        if len(images) != len(files):
+            raise SystemExit(
+                "--serve-url serves image sources only (the front door is a "
+                "request/response gateway; enhance videos locally)"
+            )
+        savedir = next_run_dir(Path(args.output_root), args.name)
+        n = run_images_remote(args.serve_url, images, savedir, args.show_split)
+        print(f"Saved {n} images to {savedir}")
+        return
+
+    import torch
+
+    from waternet_tpu_torch.inference_engine import InferenceEngine
+
     engine = InferenceEngine(
         weights=args.weights,
         device_preprocess=args.device_preprocess,
@@ -240,9 +394,16 @@ def main(argv=None):
         dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
     )
     savedir = next_run_dir(Path(args.output_root), args.name)
-    images = [f for f in files if f.suffix.lower() in IM_SUFFIXES]
     if images:
-        n = run_images(engine, images, savedir, args.show_split, args.batch_size, args.workers)
+        if source.is_dir() and not args.exact_shapes:
+            stats = run_images_bucketed(
+                engine, images, savedir, args.show_split, args.batch_size, args.workers,
+                buckets=args.serve_buckets, max_wait_ms=args.max_wait_ms,
+                max_buckets=args.max_buckets, replicas=args.serve_replicas,
+            )
+            n = stats.requests
+        else:
+            n = run_images(engine, images, savedir, args.show_split, args.batch_size, args.workers)
         print(f"Saved {n} images to {savedir}")
     for f in files:
         if f.suffix.lower() in VID_SUFFIXES:

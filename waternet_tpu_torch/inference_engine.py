@@ -16,10 +16,25 @@ parameters, as the JAX engine applies its ``dtype`` to the forward alone;
 the result is float32 either way. Host batches go to CUDA through pinned
 memory without waiting for the stream, so :meth:`enhance_async` returns
 while the previous batch still runs.
+
+The padded entry points (:meth:`pad_raw_to_bucket`,
+:meth:`preprocess_padded`, :meth:`enhance_padded_async`,
+:meth:`warm_padded`, :meth:`replica_params`) serve the shape-bucketed
+path of ``waternet_tpu_torch/serving/`` (the JAX engine's
+``inference_engine.py:55-420``). Eager PyTorch has no compiler to count:
+what the first call at a new shape pays is cuDNN's execution plan and
+the caching allocator's blocks. So the engine records each ``(path,
+batch shape, device)`` key it has run (:meth:`shape_cache_size`), a
+bucketed key is *warm* once :meth:`warm_padded` has handed out its
+callable, and a bucketed dispatch of a key never warmed counts in
+``cold_dispatches``: serving pins that count at zero, as the JAX package
+pins its jit caches with ``compile_sentinel``. ``cudnn.benchmark`` stays
+off: autotuning may pick another algorithm in another process.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -58,8 +73,13 @@ class InferenceEngine:
                 "or place a checkpoint in ./weights (.npz, or the reference's "
                 "exported .pt)."
             )
+        self.params = params
         self.model = build_model(params, self.device)
         self.device_preprocess = device_preprocess
+        self._keys_lock = threading.Lock()
+        self._seen: set = set()  # guarded-by: self._keys_lock
+        self._warm: set = set()  # guarded-by: self._keys_lock
+        self.cold_dispatches = 0  # guarded-by: self._keys_lock
 
     def enhance(self, rgb_batch) -> np.ndarray:
         """(N, H, W, 3) uint8 RGB -> (N, H, W, 3) uint8 RGB enhanced."""
@@ -81,16 +101,175 @@ class InferenceEngine:
                 "enhance_async got an empty batch: enhancement needs at "
                 "least one (H, W, 3) frame"
             )
+        self._note_shape(("native", tuple(np.shape(rgb_batch)), self.device), padded=False)
+        model = self.model  # one read: a reload swaps the attribute whole
         if self.device_preprocess:
             rgb = torch.as_tensor(np.ascontiguousarray(rgb_batch, dtype=np.uint8))
             rgb = to_device(rgb, self.device)
             wb, gc, he = transform_batch(rgb)
             x = rgb.to(torch.float32) / 255.0
-            return self.forward(x, wb / 255.0, he / 255.0, gc / 255.0)
+            return run_model(model, self.dtype, x, wb / 255.0, he / 255.0, gc / 255.0)
         wb, gc, he = zip(*(transform_np(np.asarray(f)) for f in rgb_batch))
 
         def to_dev(arrs):
             t = to_device(torch.from_numpy(np.stack(arrs)), self.device)
             return t.to(torch.float32) / 255.0
 
-        return self.forward(to_dev(list(rgb_batch)), to_dev(wb), to_dev(he), to_dev(gc))
+        return run_model(model, self.dtype, to_dev(list(rgb_batch)), to_dev(wb), to_dev(he), to_dev(gc))
+
+    # ------------------------------------------------------------------
+    # The padded entry points: the shape-bucketed serving path
+    # ------------------------------------------------------------------
+
+    def _note_shape(self, key, padded: bool) -> None:
+        """Record that ``key`` ran; a bucketed key that :meth:`warm_padded`
+        never warmed, met for the first time, is a cold dispatch."""
+        with self._keys_lock:
+            if key in self._seen:
+                return
+            self._seen.add(key)
+            if padded and key not in self._warm:
+                self.cold_dispatches += 1
+
+    def shape_cache_size(self) -> int:
+        """How many ``(path, batch shape, device)`` keys the engine has run:
+        the port's counterpart of the JAX engine's jit cache sizes (its
+        growth across a call is the number of shapes first met there)."""
+        with self._keys_lock:
+            return len(self._seen)
+
+    def _dev(self, device) -> torch.device:
+        return self.device if device is None else torch.device(device)
+
+    def replica_params(self, device):
+        """The engine's weights on ``device``, as a model bound to them: one
+        copy per serving replica (``serving/replicas.py``). ``None`` returns
+        the engine's own model."""
+        if device is None:
+            return self.model
+        return build_model(self.params, torch.device(device))
+
+    def set_params(self, params: dict) -> None:
+        """Swap in a new state_dict (hot reload): a fresh model replaces the
+        old one whole, so a call that already read ``self.model`` finishes
+        on the old weights. Callers validate the shapes first."""
+        model = build_model(params, self.device)
+        self.params, self.model = params, model
+
+    def pad_raw_to_bucket(self, images, bucket_hw, n_slots=None):
+        """Mixed-native-shape uint8 HWC images -> (uint8 canvas batch, (N, 2)
+        int32 native shapes) at one ``bucket_hw`` canvas shape.
+
+        Only the raw bytes are padded here (reflect, bottom/right); the
+        device-preprocess program computes WB/GC/CLAHE statistics over each
+        native region (ops/masked.py). Batch padding repeats the last image
+        (the forward is per-sample independent, so it never changes a real
+        sample's output, and the batch shape never changes)."""
+        from waternet_tpu_torch.serving.bucketing import pad_to_bucket
+
+        if not images:
+            raise ValueError(
+                "pad_raw_to_bucket got no images: serving batches are "
+                "non-empty by construction"
+            )
+        bh, bw = bucket_hw
+        canvases = [pad_to_bucket(im, bh, bw) for im in images]
+        hw = [(im.shape[0], im.shape[1]) for im in images]
+        if n_slots is not None:
+            if len(canvases) > n_slots:
+                raise ValueError(
+                    f"{len(canvases)} images exceed the warmed batch of "
+                    f"{n_slots} slots"
+                )
+            canvases.extend([canvases[-1]] * (n_slots - len(canvases)))
+            hw.extend([hw[-1]] * (n_slots - len(hw)))
+        return np.stack(canvases), np.asarray(hw, np.int32)
+
+    def preprocess_padded(self, images, bucket_hw, n_slots=None, device=None):
+        """Mixed-native-shape uint8 HWC images -> the network's four float32
+        input batches ``(x, wb, he, gc)`` at one ``bucket_hw`` canvas shape,
+        on ``device`` (default: the engine's).
+
+        WB/GC/CLAHE always run on the host here (cv2, :func:`~waternet_tpu_
+        torch.ops.transform.transform_np`), on the NATIVE image: they are
+        per-image statistics, so the pad comes after them. Each of the four
+        is then reflect-padded bottom/right to ``bucket_hw``, the batch
+        padded to ``n_slots`` by repeating the last image, and the four
+        uint8 batches go up in one pinned, non-blocking copy."""
+        from waternet_tpu_torch.serving.bucketing import pad_to_bucket
+
+        if not images:
+            raise ValueError(
+                "preprocess_padded got no images: serving batches are "
+                "non-empty by construction"
+            )
+        bh, bw = bucket_hw
+        quads = []
+        for im in images:
+            wb, gc, he = transform_np(im)
+            quads.append(tuple(pad_to_bucket(a, bh, bw) for a in (im, wb, he, gc)))
+        if n_slots is not None:
+            if len(quads) > n_slots:
+                raise ValueError(
+                    f"{len(quads)} images exceed the warmed batch of {n_slots} slots"
+                )
+            quads.extend([quads[-1]] * (n_slots - len(quads)))
+        host = np.stack([np.stack(arrs) for arrs in zip(*quads)])  # (4, N, bh, bw, 3)
+        planes = to_device(torch.from_numpy(host), self._dev(device)).to(torch.float32) / 255.0
+        return tuple(planes.unbind(0))
+
+    @torch.inference_mode()
+    def enhance_padded_async(self, images, bucket_hw, n_slots=None, params=None, device=None):
+        """Enqueue the bucketed forward for ``images`` and return the
+        (n_slots or N, bh, bw, 3) float32 result on ``device`` without
+        waiting for it. Callers crop row ``i`` back to ``images[i].shape``.
+
+        ``params`` is a :meth:`replica_params` model and ``device`` its
+        device (a serving replica's placement); by default the engine's own.
+        Host-preprocess engines run :meth:`preprocess_padded`, then the
+        forward; device-preprocess engines upload the raw canvases and
+        their native shapes, run :func:`~waternet_tpu_torch.ops.masked.
+        transform_masked_batch`, then the forward (the JAX engine's
+        ``_fused_padded``). The bf16 engine's dtype applies to the forward
+        only."""
+        from waternet_tpu_torch.ops.masked import transform_masked_batch
+
+        dev = self._dev(device)
+        model = self.model if params is None else params
+        bh, bw = bucket_hw
+        n = len(images) if n_slots is None else n_slots
+        self._note_shape(("padded", (n, bh, bw, 3), dev), padded=True)
+        if self.device_preprocess:
+            canvas, hw = self.pad_raw_to_bucket(images, bucket_hw, n_slots)
+            rgb = to_device(torch.from_numpy(canvas), dev)
+            wb, gc, he = transform_masked_batch(rgb, to_device(torch.from_numpy(hw), dev))
+            x = rgb.to(torch.float32) / 255.0
+            return run_model(model, self.dtype, x, wb / 255.0, he / 255.0, gc / 255.0)
+        x, wb, he, gc = self.preprocess_padded(images, bucket_hw, n_slots, device=dev)
+        return run_model(model, self.dtype, x, wb, he, gc)
+
+    def enhance_padded(self, images, bucket_hw, n_slots=None, params=None, device=None) -> np.ndarray:
+        """:meth:`enhance_padded_async`, waited for: the (n_slots or N, bh,
+        bw, 3) uint8 batch, uncropped."""
+        return ten2arr(self.enhance_padded_async(images, bucket_hw, n_slots, params, device))
+
+    def warm_padded(self, n_slots: int, bucket_hw, device=None, params=None):
+        """Mark the ``(n_slots, bucket_hw)`` batch on ``device`` warm and
+        return the callable that serves it, ``serve(images, params=None)``
+        -> :meth:`enhance_padded_async`'s result (``params`` defaults to the
+        ones given here). The serving warmup runs one probe batch through
+        it (``serving/warmup.py``), which builds cuDNN's plans and the
+        allocator's blocks for that shape before any request arrives: the
+        port's counterpart of the JAX engine's ``aot_compile_padded``."""
+        dev = self._dev(device)
+        bh, bw = bucket_hw
+        with self._keys_lock:
+            self._warm.add(("padded", (n_slots, bh, bw, 3), dev))
+        bound = params
+
+        def serve(images, params=None):
+            return self.enhance_padded_async(
+                images, bucket_hw, n_slots, params=bound if params is None else params, device=dev,
+            )
+
+        return serve

@@ -152,10 +152,16 @@ def tile_plan(n: int, hp: int, wp: int, ty: int, tx: int, data_ptr: int, sms: in
     return TilePlan(cluster, vec, _LUT_THREADS, tiles * cluster)
 
 
-def luts_from_hist(hist: torch.Tensor, clip: int, scale) -> torch.Tensor:
+def luts_from_hist(hist: torch.Tensor, clip, scale) -> torch.Tensor:
     """(T, 256) integer histograms -> (T, 256) float32 LUTs: OpenCV's integer
     clip and excess redistribution, then ``clip(rint(cdf * scale), 0, 255)``
-    with the single-rounded float32 ``scale`` (clahe.py:275-288)."""
+    with the single-rounded float32 ``scale`` (clahe.py:275-288).
+
+    ``clip`` is an int or a (T,) integer tensor and ``scale`` a float32
+    value or a (T,) float32 tensor, one per histogram (the masked CLAHE's
+    per-image tile geometry); either way each LUT's arithmetic is the same."""
+    if isinstance(clip, torch.Tensor):
+        clip = clip[:, None].to(hist.dtype)
     excess = torch.clamp_min(hist - clip, 0).sum(dim=-1)  # (T,)
     hist = torch.clamp_max(hist, clip) + (excess // _BINS)[:, None]
     residual = excess % _BINS
@@ -168,7 +174,8 @@ def luts_from_hist(hist: torch.Tensor, clip: int, scale) -> torch.Tensor:
     )
     cdf = torch.cumsum(hist + inc.to(hist.dtype), dim=-1).to(torch.float32)
     # A float32 value: the product rounds once, in float32.
-    return torch.clamp(torch.round(cdf * float(np.float32(scale))), 0.0, 255.0)
+    scale = scale[:, None] if isinstance(scale, torch.Tensor) else float(np.float32(scale))
+    return torch.clamp(torch.round(cdf * scale), 0.0, 255.0)
 
 
 def tile_histogram_plain(l_pad: torch.Tensor, tile_grid) -> torch.Tensor:

@@ -2,11 +2,14 @@
 
 The JAX package's ``resilience/faults.py``, lifted whole so that a
 ``WATERNET_FAULTS`` spec parses to the same events in both packages; only
-the ``nan`` hook touches the model, here torch parameters. The serving
-kinds (``slow_replica`` ... ``gateway_hang``) parse and count, but no
-serving path of the port calls their hooks yet (ROADMAP Queue A item 6),
-nor does a supervisor reap ``proc_kill``/``proc_hang`` (item 8); the
-module paths named for them below are the JAX package's.
+the ``nan`` hook touches the model, here torch parameters. The port's
+serving layer (``waternet_tpu_torch/serving/``) calls the replica and
+front-door hooks (``slow_replica``, ``replica_crash``, ``replica_hang``,
+``nan_output``, ``reject_admit``, ``gateway_crash``, ``gateway_hang``);
+the stream kinds parse and count, but the port's stream sessions are
+ROADMAP Queue A item 6's next part, and no supervisor reaps
+``proc_kill``/``proc_hang`` yet (item 8); the module paths named for
+those below are the JAX package's.
 
 Real preemptions, NaN steps, and corrupt files are rare and nondeterministic;
 this harness makes each one a reproducible event so tests (and operators

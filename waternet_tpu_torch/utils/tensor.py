@@ -36,6 +36,29 @@ def to_device(t: torch.Tensor, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def start_readback(t: torch.Tensor):
+    """Enqueue a copy of ``t`` to host memory on the current stream and
+    return ``(host tensor, event)`` without waiting: a CUDA tensor lands in
+    pinned memory behind an event recorded after the copy; a CPU tensor is
+    its own host copy (event None). :func:`finish_readback` waits."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def finish_readback(handle) -> torch.Tensor:
+    """Wait for :func:`start_readback`'s copy (on its event: work queued
+    later, on any stream, does not delay it) and return the host tensor."""
+    host, event = handle
+    if event is not None:
+        event.synchronize()
+    return host
+
+
 class DeviceFeeder:
     """Host-to-device copies made on pipeline worker threads, overlapping
     the step that runs on the consumer's stream.
