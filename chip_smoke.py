@@ -162,7 +162,34 @@ Phases; any failure exits non-zero, and nothing below is caught:
    batch of 4: the answers byte-equal to S1's, the pool's counters
    equal to the same plan's on the CPU port. Then ``python -m
    waternet_tpu_torch.bench --config serve`` and ``--config serve_http``
-   at their defaults.
+   at their defaults;
+13. F, the fast tier. F1: the default 24 x 7 CAN student (seeded init)
+   through ``StudentEngine`` at R1 in fp32 and bf16 (p50 of 5, frames/s,
+   peak memory, no launch), and the committed distilled student (24 x 5)
+   at R3 on the card against the CPU port (fp32 within 2e-5, uint8 within
+   one level). F2: static int8: ``InferenceEngine(quantize=True,
+   device_preprocess=True)`` at R3 with the CPU port's qtree, every one of
+   the 17 convolutions' int32 accumulators equal to the CPU port's on the
+   same inputs (the int8 model's ``acc_hook``), the answers within one level
+   of the CPU port's int8 engine, one launch of each CLAHE kernel; the
+   int8 quality and student engines at R1 (time, peak memory, the widest
+   layer's im2col band). F3: ``python -m waternet_tpu_torch.train
+   --distill --teacher-weights teacher.npz`` at 16 x 112x112 bf16 with
+   device preprocessing and the perceptual term, 64 pairs, 2 epochs: the
+   train loss falls, one launch of each CLAHE kernel a train and val step
+   (the teacher's in-step CLAHE), the warm images/s and ``mfu``, and the
+   ``last.npz`` served by ``StudentEngine``. F4: phase 12's population
+   through a two-tier ``ServingServer`` (teacher fp32 with host
+   preprocessing, the distilled student fp32): ``compiles`` 6 with no cold
+   dispatch and no launch, every ``X-Tier: fast`` answer byte-equal to
+   ``enhance_padded``, each tier's images/s; then ``POST /admin/policy
+   {"downgrade_watermark": 1}`` with the quality queue held full: every
+   opted-in quality request answered by the fast tier (``X-Tier-Served:
+   fast``), byte-equal to its answer. F5: the student's float and int8
+   artifacts and WaterNet's float one through ``save_artifact`` and
+   ``load_artifact`` on the card, at R3 and R2, bit for bit the eager
+   forward. F6: ``bench --config tiers`` and ``WATERNET_QUANT=1 bench
+   --config video`` (8 timed calls).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card line and
 the ``{"ok": true, "device": ...}`` result. Inputs are made with numpy
@@ -174,6 +201,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -244,6 +272,12 @@ RESUME_R4 = dict(sigterm=20)
 SERVE = dict(n=24, base=540, max_buckets=3, max_batch=4, concurrency=8)
 BF16_LEVELS = 3  # the bf16 engine's bound: within 3 levels, more than 1 on <= 1%
 FAULT_COUNTERS = ("requests", "retried", "nan_outputs", "quarantines", "reintegrations")
+# Phase 13 (F, the fast tier): the committed distilled student (24 x 5),
+# the fp32 forward's parity bound, and F3's distillation run (the JAX
+# CLI's default step, 64 pairs: 56 train in 4 steps, 8 val in 1).
+STUDENT = str(REPO / "tests" / "fixtures" / "distill" / "student.npz")
+FAST_ATOL = 2e-5
+FAST_DISTILL = dict(synthetic=64, val_size=8, batch=16, hw=112)
 WATERNET_MAC_PER_PX = 1_089_824
 TRAIN_KEYS = ("mse", "ssim", "psnr", "perceptual_loss", "loss")
 VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -454,9 +488,10 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
     return summary
 
 
-def train_cli(tag: str, args: list):
+def train_cli(tag: str, args: list, keep=None):
     """``python -m waternet_tpu_torch.train`` on the card in a fresh run
-    root; -> (its epoch_stats lines, its config.json, stdout)."""
+    root; -> (its epoch_stats lines, its config.json, stdout). ``keep``: a
+    directory the run's ``last.npz`` is copied into."""
     with tempfile.TemporaryDirectory() as root:
         cmd = [sys.executable, "-m", "waternet_tpu_torch.train", "--device", "cuda",
                "--seed", str(SEED), "--train-root", root, *args]
@@ -468,6 +503,8 @@ def train_cli(tag: str, args: list):
         for name in ("last.npz", "metrics-train.csv", "metrics-val.csv", "summary.json", "config.json"):
             check((run / name).is_file(), f"{tag}: {name} missing")
         config = json.loads((run / "config.json").read_text())
+        if keep is not None:
+            shutil.copy(run / "last.npz", Path(keep) / "last.npz")
     stats = [json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()
              if ln.startswith("epoch_stats ")]
     for s in stats:
@@ -969,17 +1006,21 @@ BENCH_METRIC = {(): "uieb_train_images_per_sec_per_chip",
                 ("--config", "train_fullres"): "train_fullres_devcache_images_per_sec",
                 ("--config", "video"): "video_1080p_frames_per_sec_per_chip",
                 ("--config", "serve"): "mixed_res_dir_images_per_sec",
-                ("--config", "serve_http"): "http_images_per_sec"}
+                ("--config", "serve_http"): "http_images_per_sec",
+                ("--config", "tiers"): "fast_tier_images_per_sec"}
 
 
-def run_bench(card, *args) -> dict:
-    """``python -m waternet_tpu_torch.bench`` as a subprocess; it must exit
-    0 and end in its contract line, with a finite positive value and
-    ``mfu`` in (0, 1] where the line has one. Echoes every line; returns
-    the last."""
+def run_bench(card, *args, env=None) -> dict:
+    """``python -m waternet_tpu_torch.bench`` as a subprocess (``env``:
+    variables added to its environment); it must exit 0 and end in its
+    contract line, with a finite positive value and ``mfu`` in (0, 1]
+    where the line has one. Echoes every line; returns the last."""
+    import os
+
     cmd = [sys.executable, "-m", "waternet_tpu_torch.bench", "--device", "cuda", *args]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, **(env or {})})
     wall = time.perf_counter() - t0
     check(proc.returncode == 0, f"bench {args} failed:\n{proc.stdout}\n{proc.stderr}")
     lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
@@ -1734,6 +1775,272 @@ def run_serving(torch, dev, card) -> dict:
     return launches
 
 
+def timed_p50(torch, fn, n: int = 5) -> tuple:
+    """(p50 seconds, every run's seconds) of ``fn`` on the host clock, the
+    card synchronised around each run."""
+    lat = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    return statistics.median(lat), lat
+
+
+def r1_run(torch, tag: str, engine, frames, card, **extra) -> dict:
+    """One warm-up call, then the p50 of 5 of ``engine.enhance(frames)``
+    with the peak memory and the launches of the timed calls (none on
+    the student's path), and one more call under ``torch.profiler``
+    (``stage_profile._profile``: device busy ms, idle share, the costliest
+    kernels)."""
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.stage_profile import _profile
+
+    out = engine.enhance(frames)
+    check(out.shape == frames.shape and out.dtype == np.uint8 and out.std() > 0, f"{tag}: output")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    p50, lat = timed_p50(torch, lambda: engine.enhance(frames))
+    line = {"run": tag, "shape": list(frames.shape), "latency_ms_p50": p50 * 1e3,
+            "latency_ms": [t * 1e3 for t in lat], "frames_per_s": len(frames) / p50,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": dict(kernels.LAUNCHES),
+            "profiled": _profile(lambda: engine.enhance(frames)), **extra, "card": card}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def run_fast_tier(torch, dev, card) -> dict:
+    """Phase 13 (F): the fast tier on the card. Returns the launches of
+    F2's int8 request and F3's distillation, each counted from 0."""
+    from waternet_tpu_torch.export import load_artifact, save_artifact
+    from waternet_tpu_torch.hub import build_model, resolve_weights
+    from waternet_tpu_torch.inference_engine import InferenceEngine, StudentEngine
+    from waternet_tpu_torch.models import CANStudent, quant
+    from waternet_tpu_torch.models.can import build_student, train_flops_per_image
+    from waternet_tpu_torch.obs.device import peak_tflops
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.ops.transform import transform_batch
+    from waternet_tpu_torch.utils.synthetic import photo_frames
+    from waternet_tpu_torch.utils.tensor import to_device
+
+    rng = np.random.default_rng(SEED + 13)
+    r1 = photo_frames(rng, *REQUESTS["R1"])
+    r3 = photo_frames(rng, *REQUESTS["R3"])
+    launches = {}
+
+    # F1: the default 24 x 7 student (seeded) at R1, fp32 and bf16; no launch.
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        default_student = CANStudent().state_dict()
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        eng = StudentEngine(params=default_student, dtype=dtype, device=dev)
+        line = r1_run(torch, f"F1 student 24x7 {name} R1", eng, r1, card)
+        check(line["launches"] == NO_LAUNCH, f"F1 {name}: launches {line['launches']}")
+        del eng
+    # The fixture student on the card against the CPU port's, at R3.
+    card_eng = StudentEngine(weights=STUDENT, device=dev)
+    cpu_eng = StudentEngine(weights=STUDENT, device="cpu")
+    got = card_eng.enhance_async(r3).cpu()
+    want = cpu_eng.enhance_async(r3)
+    f_err = float((got - want).abs().max())
+    d = np.abs(card_eng.enhance(r3).astype(np.int16) - cpu_eng.enhance(r3).astype(np.int16))
+    print(json.dumps({"run": "F1 fixture student card vs CPU R3", "max_abs_err_fp32": f_err,
+                      "uint8_max_abs_diff": int(d.max()), "share_differing": float((d > 0).mean()),
+                      "card": card}), flush=True)
+    check(f_err <= FAST_ATOL and d.max() <= 1, f"F1: card vs CPU {f_err} fp32, {int(d.max())} levels")
+    del card_eng, cpu_eng
+
+    # F2: int8. The CPU port's int8 engine calibrates the qtree; the card's
+    # takes the same qtree. Every conv's int32 accumulators equal on the
+    # same network inputs (the card's transforms), and the answers of the
+    # two engines within one level.
+    cpu_q = InferenceEngine(weights=WEIGHTS, device_preprocess=True, device="cpu", quantize=True)
+    card_q = InferenceEngine(params=cpu_q.params, device_preprocess=True, device=dev, quantize=True)
+    card_q.enhance(r3)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out_card = card_q.enhance(r3)
+    torch.cuda.synchronize()
+    launches["fast_F2_int8_request"] = dict(kernels.LAUNCHES)
+    want_l = dict(NO_LAUNCH, tile_lut=1, clahe_lut_planes=1)
+    check(launches["fast_F2_int8_request"] == want_l, f"F2 launches {launches['fast_F2_int8_request']}")
+    d = np.abs(out_card.astype(np.int16) - cpu_q.enhance(r3).astype(np.int16))
+    rgb = to_device(torch.from_numpy(r3), dev)
+    wb, gc, he = transform_batch(rgb)
+    planes = [rgb.to(torch.float32) / 255.0, wb / 255.0, he / 255.0, gc / 255.0]
+    accs_card, accs_cpu = {}, {}
+    card_q.model.acc_hook = lambda n, a: accs_card.__setitem__(n, a.cpu())
+    cpu_q.model.acc_hook = accs_cpu.__setitem__
+    q_card = card_q.forward(*planes).cpu()
+    q_cpu = cpu_q.forward(*(p.cpu() for p in planes))
+    card_q.model.acc_hook = None
+    unequal = sorted(n for n in accs_cpu if not torch.equal(accs_card[n], accs_cpu[n]))
+    print(json.dumps({"run": "F2 int8 R3 card vs CPU", "convs": len(accs_cpu), "accumulators_unequal": unequal,
+                      "forward_max_abs_err": float((q_card - q_cpu).abs().max()),
+                      "answers_max_abs_diff": int(d.max()), "answers_share_differing": float((d > 0).mean()),
+                      "launches": launches["fast_F2_int8_request"], "card": card}), flush=True)
+    check(len(accs_cpu) == 17 and not unequal, f"F2: accumulators differ at {unequal}")
+    check(d.max() <= 1, f"F2: int8 answers differ from the CPU port's by {int(d.max())} levels")
+    del cpu_q
+    widest = {"k": 128 * 5 * 5, "band_rows": quant.band_rows(*REQUESTS["R1"], 128 * 5 * 5),
+              "budget_bytes": quant.IM2COL_BUDGET_BYTES}
+    r1_run(torch, "F2 int8 quality R1", card_q, r1, card, im2col_widest=widest)
+    del card_q
+    torch.cuda.empty_cache()
+    stu_q = StudentEngine(params=default_student, quantize=True, device=dev)
+    r1_run(torch, "F2 int8 student 24x7 R1", stu_q, r1, card,
+           im2col_widest={"k": 24 * 9, "band_rows": quant.band_rows(*REQUESTS["R1"], 24 * 9)})
+    del stu_q
+    torch.cuda.empty_cache()
+
+    # F3: distillation through the train CLI at the JAX CLI's default.
+    f3 = FAST_DISTILL
+    with tempfile.TemporaryDirectory() as keep:
+        stats, config, _ = train_cli("F3 distill", [
+            "--distill", "--teacher-weights", WEIGHTS, "--synthetic", str(f3["synthetic"]),
+            "--val-size", str(f3["val_size"]), "--epochs", "2", "--batch-size", str(f3["batch"]),
+            "--height", str(f3["hw"]), "--width", str(f3["hw"]), "--precision", "bf16"], keep=keep)
+        check(config["distill"] is True and (config["student_width"], config["student_depth"]) == (24, 7),
+              f"F3 config {config}")
+        check(stats[1]["train"]["loss"] < stats[0]["train"]["loss"],
+              f"F3: train loss {stats[0]['train']['loss']} -> {stats[1]['train']['loss']}")
+        totals = {}
+        from waternet_tpu_torch.data.synthetic import synthetic_split
+
+        train_idx, val_idx = synthetic_split(f3["synthetic"], f3["val_size"])
+        n_train, n_val = -(-len(train_idx) // f3["batch"]), -(-len(val_idx) // f3["batch"])
+        for s in stats:
+            check_launches("F3", s, {"train": (CLAHE_ONLY, n_train), "val": (CLAHE_ONLY, n_val)}, totals)
+        launches["fast_F3_distill"] = totals
+        ips = stats[1]["train_images_per_s"]
+        peak = peak_tflops(dev, "bf16")
+        mfu = ips * train_flops_per_image(f3["hw"], f3["hw"], 24, 7, distill=True) / 1e12 / peak
+        served = StudentEngine(weights=str(Path(keep) / "last.npz"), device=dev).enhance(r3)
+        check(served.shape == r3.shape and served.std() > 0, "F3: the distilled student's answer")
+    print(json.dumps({"run": "F3 distill CLI", "steps_per_epoch": n_train, "warm_images_per_s": ips,
+                      "warm_step_ms": stats[1]["step_ms"], "mfu": mfu, "peak_mem_bytes": stats[1]["peak_mem_bytes"],
+                      "train_loss": [s["train"]["loss"] for s in stats],
+                      "val_ssim_vs_teacher": [s["val"]["ssim"] for s in stats], "launches": totals,
+                      "served_by_student_engine": True, "card": card}), flush=True)
+
+    # F4: two-tier serving on phase 12's population, fp32.
+    launches.update(run_two_tier(torch, dev, card))
+
+    # F5: the export artifacts on the card, against the eager forward.
+    s_sd, t_sd = resolve_weights(STUDENT), resolve_weights(WEIGHTS)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    with tempfile.TemporaryDirectory() as d5:
+        for tag, params, arch, q in (("student float", s_sd, "can", False), ("student int8", s_sd, "can", True),
+                                     ("waternet float", t_sd, "waternet", False)):
+            t0 = time.perf_counter()
+            run = load_artifact(save_artifact(Path(d5) / tag.replace(" ", "_"), params, arch=arch, quantize=q,
+                                              device=dev))
+            export_s = time.perf_counter() - t0
+            if arch == "can":
+                eager = quant.QuantCAN(quant.quantize_can(params, device=dev), dev) if q else build_student(params, dev)
+            else:
+                eager = build_model(params, dev)
+            errs = []
+            for shape in (REQUESTS["R3"], REQUESTS["R2"]):
+                xs = [torch.rand((*shape, 3), device=dev, generator=gen) for _ in range(1 if arch == "can" else 4)]
+                with torch.inference_mode():
+                    want = eager(*xs)
+                errs.append(float((run(*xs) - want).abs().max()))
+            print(json.dumps({"run": f"F5 export {tag}", "export_and_load_s": export_s,
+                              "shapes": [list(REQUESTS["R3"]), list(REQUESTS["R2"])], "max_abs_err": errs,
+                              "tolerance": 0.0, "card": card}), flush=True)
+            check(max(errs) == 0.0, f"F5 {tag}: artifact differs from the eager forward by {errs}")
+    torch.cuda.empty_cache()
+
+    # F6: the bench's fast-tier line and the int8 video arm.
+    tiers = run_bench(card, "--config", "tiers")
+    check(tiers["compiles"] == 2 * len(tiers["buckets"]) and tiers["cold_dispatches"] == 0,
+          f"bench tiers: compiles {tiers['compiles']}, cold {tiers['cold_dispatches']}")
+    # 8 timed calls: the int8 line's ~0.8 s a call is measured, not averaged.
+    video = run_bench(card, "--config", "video",
+                      env={"WATERNET_QUANT": "1", "WATERNET_BENCH_WARMUP": "1", "WATERNET_BENCH_STEPS": "8"})
+    check(video["quantized"] is True and video["precision"] == "int8", f"bench video int8: {video}")
+    return launches
+
+
+def run_two_tier(torch, dev, card) -> dict:
+    """F4: a two-tier ``ServingServer`` (the teacher fp32 with host
+    preprocessing, the fixture student fp32) on phase 12's population;
+    returns its launches (none)."""
+    from waternet_tpu_torch.bench import _serving_population
+    from waternet_tpu_torch.inference_engine import InferenceEngine, StudentEngine
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.serving import derive_buckets
+    from waternet_tpu_torch.serving.loadgen import run_load
+    from waternet_tpu_torch.serving.server import ServingServer
+
+    images, shapes = _serving_population(SERVE["n"], SERVE["base"])
+    ladder = derive_buckets(shapes, max_buckets=SERVE["max_buckets"])
+    slots, n = SERVE["max_batch"], len(images)
+    quality = InferenceEngine(weights=WEIGHTS, device=dev)
+    fast = StudentEngine(weights=STUDENT, device=dev)
+    server = ServingServer(quality, ladder, max_batch=slots, max_wait_ms=5.0, replicas=1, max_queue=256,
+                           fast_engine=fast)
+    pngs = [_png(im) for im in images]
+    t0 = time.perf_counter()
+    server.start_background(timeout=60)
+    try:
+        server.wait_ready(timeout=300)
+        warmup_s = time.perf_counter() - t0
+        compiles = server.stats.summary()["compiles"]
+        kernels.reset_launches()
+        rep_f = run_load(server.url, pngs, concurrency=SERVE["concurrency"], total=n, keep_bodies=True, tier="fast")
+        rep_q = run_load(server.url, pngs, concurrency=SERVE["concurrency"], total=n, keep_bodies=False)
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", server.bound_port, timeout=60)
+        conn.request("POST", "/admin/policy", body=json.dumps({"downgrade_watermark": 1}).encode())
+        resp = conn.getresponse()
+        policy = json.loads(resp.read())
+        conn.close()
+        check(resp.status == 200 and policy["policy"]["downgrade_watermark"] == 1, f"F4 policy {policy}")
+        # Keep the quality backlog above the watermark while the opted-in
+        # requests arrive: every one of them must be downgraded.
+        held = [server.batcher.submit(im) for im in images]
+        rep_d = run_load(server.url, pngs[:slots * 2], concurrency=SERVE["concurrency"], total=slots * 2,
+                         keep_bodies=True, tier="quality", allow_downgrade=True)
+        still_held = sum(not h.done() for h in held)
+        for h in held:
+            h.result(timeout=300)
+        launches = dict(kernels.LAUNCHES)
+        stats = server.stats.summary()
+    finally:
+        server.request_drain()
+        code = server.join(timeout=300)
+    check(code == 0, f"F4: the server's drain exited {code}")
+    check(compiles == 2 * len(ladder) == stats["compiles"], f"F4 compiles {compiles} / {stats['compiles']}")
+    check(quality.cold_dispatches == 0 and fast.cold_dispatches == 0, "F4: a cold dispatch")
+    check(launches == NO_LAUNCH, f"F4 launches {launches}")
+    for rep in (rep_f, rep_q, rep_d):
+        check(rep["ok"] == rep["sent"] and rep["errors"] == 0, f"F4 load report {rep}")
+    fast_want = {}
+    for i, im in enumerate(images):
+        h, w = im.shape[:2]
+        fast_want[i] = fast.enhance_padded([im], ladder.bucket_for(h, w), n_slots=slots)[0, :h, :w]
+    for idx, status, body in rep_f["bodies"]:
+        check(np.array_equal(_unpng(body), fast_want[idx]), f"F4: fast answer {idx} differs from enhance_padded")
+    check(rep_d["downgraded"] == rep_d["sent"] and still_held > 0,
+          f"F4: {rep_d['downgraded']} of {rep_d['sent']} downgraded ({still_held} held still queued)")
+    for idx, status, body in rep_d["bodies"]:
+        check(np.array_equal(_unpng(body), fast_want[idx]), f"F4: downgraded answer {idx} differs from the fast tier's")
+    print(json.dumps({
+        "run": "F4 two-tier serve fp32", "images": n, "buckets": ladder.describe(), "max_batch": slots,
+        "warmup_sec": warmup_s, "compiles": stats["compiles"], "cold_dispatches": 0,
+        "fast_images_per_sec": rep_f["images_per_sec"], "fast_latency_ms": rep_f["latency_ms"],
+        "quality_images_per_sec": rep_q["images_per_sec"], "quality_latency_ms": rep_q["latency_ms"],
+        "downgraded": rep_d["downgraded"], "of": rep_d["sent"], "stats_downgraded": stats["downgraded"],
+        "tiers": stats["tiers"], "fast_equals_enhance_padded": True, "launches": launches, "card": card,
+    }), flush=True)
+    return {"fast_F4_serving": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2032,6 +2339,10 @@ def main() -> int:
     # 12. S: serving.
     launches.update(run_serving(torch, dev, card))
     lap("12 S serving")
+
+    # 13. F: the fast tier.
+    launches.update(run_fast_tier(torch, dev, card))
+    lap("13 F fast tier")
     print(json.dumps({"phase_s": phase_s, "total_s": sum(phase_s.values())}), flush=True)
 
     kernels_line = []

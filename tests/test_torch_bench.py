@@ -125,7 +125,8 @@ def test_train_fullres_ends_in_its_contract_line():
 
 #: JAX bench configs that were unported and are now the port's own, with
 #: the metric of the line each prints instead of exiting 2.
-PORTED_SERVE = {"serve": "mixed_res_dir_images_per_sec", "serve_http": "http_images_per_sec"}
+PORTED_SERVE = {"serve": "mixed_res_dir_images_per_sec", "serve_http": "http_images_per_sec",
+                "tiers": "fast_tier_images_per_sec"}
 
 
 @pytest.mark.parametrize("config", sorted({*bench.UNPORTED, *PORTED_SERVE}))
@@ -143,13 +144,11 @@ def test_unported_config_exits_2_naming_its_item(config, capsys, monkeypatch):
     assert bench.main(["--config", config, "--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert "ROADMAP Queue A item" in err and config in err
-    if config == "tiers":
-        assert "item 7" in err
 
 
 def test_unported_config_exit_status_from_the_cli():
-    proc = _bench("--config", "tiers")
-    assert proc.returncode == 2 and "item 7" in proc.stderr and proc.stdout == ""
+    proc = _bench("--config", "serve_fleet")
+    assert proc.returncode == 2 and "item 6" in proc.stderr and proc.stdout == ""
 
 
 VIDEO = ("metric", "value", "unit", "vs_baseline", "batch", "frame_ms", "quantized", "mfu", "hbm_peak_bytes",
@@ -174,10 +173,16 @@ def test_video_config_ends_in_its_contract_line():
 
 
 def test_video_config_with_int8_exits_2_naming_item_7(capsys, monkeypatch):
-    monkeypatch.setenv("WATERNET_QUANT", "1")
-    assert bench.main(["--config", "video", "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "WATERNET_QUANT=1" in err and "ROADMAP Queue A item 7" in err
+    """The int8 arm is ported now: ``WATERNET_QUANT=1`` prints the video
+    line of the static int8 engine (at a 32 x 56 smoke size)."""
+    for k, v in {"WATERNET_QUANT": "1", "WATERNET_BENCH_HW": "32", "WATERNET_BENCH_WARMUP": "1",
+                 "WATERNET_BENCH_STEPS": "2"}.items():
+        monkeypatch.setenv(k, v)
+    assert bench.main(["--config", "video", "--device", "cpu", "--batch-size", "2"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert tuple(line) == VIDEO and line["metric"] == "video_1080p_frames_per_sec_per_chip"
+    assert line["quantized"] is True and line["precision"] == "int8"
+    assert line["value"] > 0 and math.isfinite(line["value"]) and line["hw"] == [32, 56]
 
 
 def test_bench_ab_alternates_sides_and_summarizes(monkeypatch, capsys):

@@ -235,8 +235,12 @@ def test_precache_vgg_ref_rules(over, match):
 
 
 def test_precache_vgg_ref_with_distill_stays_refused():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TrainingEngine(TrainConfig(**_kw(distill=True, precache_vgg_ref=True)), device="cpu")
+    """The JAX trainer's rule and error: the feature table holds vgg(ref),
+    and the distillation target is the teacher's output."""
+    eng = TrainingEngine(TrainConfig(**_kw(distill=True, precache_vgg_ref=True)), device="cpu",
+                         teacher_params=load_weights(TEACHER))
+    with pytest.raises(ValueError, match="precache_vgg_ref is incompatible with distill"):
+        eng.cache_dataset(SyntheticPairs(4, 16, 16, seed=0), np.arange(4))
 
 
 @pytest.mark.parametrize("codec_name", ["yuv420", "dct8"])

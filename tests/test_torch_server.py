@@ -143,7 +143,7 @@ def test_healthz_enhance_stats_metrics_and_routes(server, engine):
     status, headers, body = _request(port, "POST", "/stream", body=b"")
     assert status == 404 and b"item 6" in body and headers.get("Connection") == "close"
     status, _, body = _request(port, "POST", "/enhance", body=_png(bgr), headers={"X-Tier": "fast"})
-    assert status == 400 and b"item 7" in body
+    assert status == 400 and b"fast tier not configured" in body
     assert _request(port, "POST", "/enhance", body=_png(bgr), headers={"X-Tier": "turbo"})[0] == 400
 
 
@@ -476,10 +476,7 @@ def test_server_and_loadgen_clis_end_to_end(tmp_path):
 @pytest.mark.parametrize("flag,item", [(["--max-streams", "2"], "item 6"),
                                        (["--stream-window", "4"], "item 6"),
                                        (["--stream-reuse-threshold", "1.5"], "item 6"),
-                                       (["--stream-max-reuse-run", "3"], "item 6"),
-                                       (["--student-weights", "s.npz"], "item 7"),
-                                       (["--student-quantize"], "item 7"),
-                                       (["--downgrade-watermark", "4"], "item 7")])
+                                       (["--stream-max-reuse-run", "3"], "item 6")])
 def test_server_flags_of_later_slices_exit_2(flag, item, capsys):
     from waternet_tpu_torch.serving import server
 

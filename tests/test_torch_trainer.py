@@ -212,7 +212,7 @@ def test_step_generator_depends_on_seed_epoch_and_batch():
 
 @pytest.mark.parametrize(
     "field",
-    [dict(spatial_shards=2), dict(distill=True)],
+    [dict(spatial_shards=2)],
     ids=lambda d: next(iter(d)),
 )
 def test_unported_fields_raise(field):

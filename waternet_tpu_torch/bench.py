@@ -5,6 +5,8 @@
     python -m waternet_tpu_torch.bench --config video [--batch-size 4]
     python -m waternet_tpu_torch.bench --config serve
     python -m waternet_tpu_torch.bench --config serve_http
+    python -m waternet_tpu_torch.bench --config tiers
+    WATERNET_QUANT=1 python -m waternet_tpu_torch.bench --config video
     python -m waternet_tpu_torch.bench --device cpu             # a smoke run
 
 The JAX package's root ``bench.py`` training lines, ported, on synthetic
@@ -39,7 +41,8 @@ the device synchronised at their end. Printed in this order:
 uploading the batch and reading back the previous uint8 result, as the
 video CLI runs. ``mfu`` is the analytic WaterNet FLOPs of the frames over
 the time and the card's bf16 peak. ``WATERNET_QUANT=1`` (the JAX bench's
-int8 arm) exits 2: the int8 path is Queue A item 7.
+int8 arm) runs the static int8 engine instead (``quantized`` true,
+``precision`` int8, ``mfu`` over the card's int8 peak).
 
 ``--config serve`` is the JAX bench's ``mixed_res_dir_images_per_sec``:
 a shuffled population of ``WATERNET_BENCH_SERVE_IMAGES`` (48) images,
@@ -58,6 +61,14 @@ over real sockets, a serial pass, a closed-loop pass at
 a 2x overload pass against a tight admission watermark; ``accounted``
 pins that every request ended as ok, shed, deadline or error on both the
 client's and the server's count.
+
+``--config tiers`` is the JAX bench's ``fast_tier_images_per_sec``: the
+serve population through ONE tier-routing ``DynamicBatcher`` (fp32, host
+preprocessing for the quality tier), quality then fast, plus the int8
+student through its own batcher; the student is
+``WATERNET_STUDENT_WEIGHTS`` or the seeded default 24 x 7 init, the
+teacher the local weight resolution or the seeded init.
+``ssim_vs_teacher`` compares the two tiers on 4 synthetic frames.
 
 ``--config train_fullres`` is the full-res device-cache A/B at 256 x 256:
 the raw cache (with its tables) runs only where the preflight budgeter
@@ -104,7 +115,6 @@ UNPORTED = {
     **{name: "Queue A item 6, its next part (streams, fleet, the adaptive and chaos A/Bs)"
        for name in ("serve_adaptive", "serve_chaos", "serve_fleet", "stream", "stream_reuse", "obs")},
     "serve_multi": "Queue A item 8 (multi-GPU)",
-    "tiers": "Queue A item 7 (fast tier)",
     "train_chaos": "Queue A items 5 (resilience) and 8 (its supervisor needs multi-GPU)",
 }
 
@@ -365,9 +375,10 @@ def bench_train_fullres(dev) -> dict:
     }
 
 
-def bench_video(dev, batch: int = 4) -> dict:
-    """The video line: double-buffered bf16 enhancement of ``batch``
-    1080p frames a call, upload and uint8 readback included."""
+def bench_video(dev, batch: int = 4, quantize: bool = False) -> dict:
+    """The video line: double-buffered bf16 (or, with ``quantize``, static
+    int8) enhancement of ``batch`` 1080p frames a call, upload and uint8
+    readback included."""
     from waternet_tpu_torch.data.synthetic import SyntheticPairs
     from waternet_tpu_torch.hub import init_state_dict
     from waternet_tpu_torch.inference_engine import InferenceEngine
@@ -382,7 +393,7 @@ def bench_video(dev, batch: int = 4) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     engine = InferenceEngine(params=init_state_dict(0), device_preprocess=True, device=dev,
-                             dtype=torch.bfloat16)
+                             dtype=torch.bfloat16, quantize=quantize)
     frames = np.stack([SyntheticPairs(1, h, w, seed=i).load_pair(0)[0] for i in range(batch)])
     for _ in range(warmup):
         ten2arr(engine.enhance_async(frames))
@@ -398,7 +409,8 @@ def bench_video(dev, batch: int = 4) -> dict:
     if out.shape != frames.shape or out.dtype != np.uint8:
         raise RuntimeError(f"the video engine returned {out.dtype} {out.shape} for {frames.shape}")
     fps = batch * steps / dt
-    peak = peak_tflops(dev, "bf16")
+    precision = "int8" if quantize else "bf16"
+    peak = peak_tflops(dev, precision)
     return {
         "metric": "video_1080p_frames_per_sec_per_chip",
         "value": fps,
@@ -406,13 +418,13 @@ def bench_video(dev, batch: int = 4) -> dict:
         "vs_baseline": None,
         "batch": batch,
         "frame_ms": dt / (batch * steps) * 1e3,
-        "quantized": False,
+        "quantized": quantize,
         "mfu": fps * waternet_forward_flops(h, w) / 1e12 / peak if peak else None,
         "hbm_peak_bytes": hbm_peak_bytes(dev),
         "peak_tflops_assumed": peak,
         "device_kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
         "hw": [h, w],
-        "precision": "bf16",
+        "precision": precision,
     }
 
 
@@ -592,24 +604,117 @@ def bench_serving_http(dev, n_images=None, max_batch=None, max_buckets=None, bas
     }
 
 
+def bench_tiers(dev, n_images=None, max_batch=None, max_buckets=None, base_hw=None) -> dict:
+    """``fast_tier_images_per_sec``: the same population through one
+    tier-routing batcher, quality (fp32 WaterNet with host WB/GC/CLAHE)
+    then fast (the CAN student, raw RGB in), and the int8 student through
+    its own batcher; the JAX bench's field names."""
+    from waternet_tpu_torch.data.synthetic import SyntheticPairs
+    from waternet_tpu_torch.hub import init_state_dict, resolve_weights
+    from waternet_tpu_torch.inference_engine import InferenceEngine, StudentEngine
+    from waternet_tpu_torch.models import CANStudent
+    from waternet_tpu_torch.models.can import flops_ratio
+    from waternet_tpu_torch.serving import DynamicBatcher, derive_buckets
+    from waternet_tpu_torch.training.metrics import ssim as ssim_fn
+
+    n_images, max_batch, max_buckets = _serving_env_defaults(n_images, max_batch, max_buckets)
+    base = _env_int("WATERNET_BENCH_HW", 112) if base_hw is None else base_hw
+    params = resolve_weights(None)
+    pretrained_teacher = params is not None
+    if params is None:
+        params = init_state_dict(0)
+    student_env = os.environ.get("WATERNET_STUDENT_WEIGHTS")
+    if student_env:
+        student_params = resolve_weights(student_env)
+    else:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(1)
+            student_params = CANStudent().state_dict()
+    images, shapes = _serving_population(n_images, base)
+    ladder = derive_buckets(shapes, max_buckets=max_buckets)
+
+    engine = InferenceEngine(params=params, device=dev)
+    fast = StudentEngine(params=student_params, device=dev)
+    t0 = time.perf_counter()
+    batcher = DynamicBatcher(engine, ladder, max_batch=max_batch, fast_engine=fast)
+    warmup_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        outs_q = batcher.map_ordered(images)
+        teacher_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs_f = batcher.map_ordered(images, tier="fast")
+        fast_s = time.perf_counter() - t0
+    finally:
+        batcher.close()
+    summary = batcher.stats.summary()
+    if [o.shape for o in outs_q] != [im.shape for im in images] or len(outs_f) != n_images:
+        raise RuntimeError("the tier-routing batcher returned other shapes than it was given")
+
+    # The int8 student through the same bucketed machinery (its own batcher).
+    fast_q8 = StudentEngine(
+        params=student_params, quantize=True, device=dev,
+        calib_batches=[im[None].astype(np.float32) / 255.0 for im in images[:4]],
+    )
+    b8 = DynamicBatcher(fast_q8, ladder, max_batch=max_batch, tier_name="fast")
+    try:
+        t0 = time.perf_counter()
+        outs_8 = b8.map_ordered(images)
+        int8_s = time.perf_counter() - t0
+    finally:
+        b8.close()
+
+    # The fast tier against the quality tier on plausible frames (noise is
+    # out of distribution for both, and its SSIM is ~0 by construction).
+    fid = SyntheticPairs(4, base, base, seed=0)
+    frames = np.stack([fid.load_pair(i)[0] for i in range(4)])
+    as_t = lambda a: torch.from_numpy(a).to(torch.float32) / 255.0  # noqa: E731
+    ssim = float(ssim_fn(as_t(fast.enhance(frames)), as_t(engine.enhance(frames)), data_range=1.0))
+    int8_err = float(np.mean([np.abs(a.astype(int) - b.astype(int)).mean() for a, b in zip(outs_8, outs_f)]))
+
+    teacher_ips, fast_ips = n_images / teacher_s, n_images / fast_s
+    return {
+        "metric": "fast_tier_images_per_sec",
+        "value": fast_ips,
+        "unit": "images/sec/chip",
+        "vs_baseline": None,
+        "teacher_images_per_sec": teacher_ips,
+        "speedup_vs_teacher": fast_ips / teacher_ips,
+        "flop_ratio": flops_ratio(base, base, fast.width, fast.depth),
+        "ssim_vs_teacher": ssim,
+        "distilled_student": bool(student_env),
+        "pretrained_teacher": pretrained_teacher,
+        "int8_images_per_sec": n_images / int8_s,
+        "int8_speedup_vs_teacher": (n_images / int8_s) / teacher_ips,
+        "int8_vs_float_student_mean_abs_lvl": int8_err,
+        "student_width": fast.width,
+        "student_depth": fast.depth,
+        "tiers": summary["tiers"],
+        "buckets": ladder.describe(),
+        "compiles": summary["compiles"],
+        "cold_dispatches": engine.cold_dispatches + fast.cold_dispatches + fast_q8.cold_dispatches,
+        "warmup_sec": warmup_s,
+        "n_images": n_images,
+        "max_batch": max_batch,
+        "device_kind": _device_kind(dev),
+    }
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", default="train",
-                   choices=["train", "train_fullres", "video", "serve", "serve_http", *UNPORTED],
+                   choices=["train", "train_fullres", "video", "serve", "serve_http", "tiers", *UNPORTED],
                    help="train (default: the three training lines), train_fullres (the 256x256 "
-                   "device-cache codec A/B), video (1080p bf16 inference), serve (bucketed vs "
-                   "exact-shape directory serving) or serve_http (the HTTP front door); the JAX "
-                   "bench's other configs are not ported yet.")
+                   "device-cache codec A/B), video (1080p bf16 inference; WATERNET_QUANT=1: int8), "
+                   "serve (bucketed vs exact-shape directory serving), serve_http (the HTTP front "
+                   "door) or tiers (the fast tier against the quality tier); the JAX bench's other "
+                   "configs are not ported yet.")
     p.add_argument("--batch-size", type=int, default=4, help="Frames a device batch (--config video).")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'.")
     args = p.parse_args(argv)
     if args.config in UNPORTED:
         print(f"bench --config {args.config} is not ported to waternet_tpu_torch yet "
               f"(ROADMAP {UNPORTED[args.config]})", file=sys.stderr)
-        return 2
-    if args.config == "video" and os.environ.get("WATERNET_QUANT") == "1":
-        print("bench --config video with WATERNET_QUANT=1: the int8 path is not ported to "
-              "waternet_tpu_torch yet (ROADMAP Queue A item 7, fast tier)", file=sys.stderr)
         return 2
     if args.batch_size < 1:
         p.error("--batch-size must be >= 1")
@@ -618,7 +723,8 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     if args.config == "video":
-        print(json.dumps(bench_video(dev, args.batch_size)), flush=True)
+        quantize = os.environ.get("WATERNET_QUANT") == "1"
+        print(json.dumps(bench_video(dev, args.batch_size, quantize=quantize)), flush=True)
         return 0
     if args.config == "train_fullres":
         print(json.dumps(bench_train_fullres(dev)), flush=True)
@@ -628,6 +734,9 @@ def main(argv=None) -> int:
         return 0
     if args.config == "serve_http":
         print(json.dumps(bench_serving_http(dev)), flush=True)
+        return 0
+    if args.config == "tiers":
+        print(json.dumps(bench_tiers(dev)), flush=True)
         return 0
 
     hostfed = os.environ.get("WATERNET_BENCH_HOSTFED", "1") != "0"

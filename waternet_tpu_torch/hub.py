@@ -33,7 +33,7 @@ import torch
 from waternet_tpu_torch.models import WaterNet
 from waternet_tpu_torch.ops.transform import transform_np
 from waternet_tpu_torch.utils.checkpoint import load_weights
-from waternet_tpu_torch.utils.convert import state_dict_from_jax
+from waternet_tpu_torch.utils.convert import can_state_dict_from_jax, is_can_tree, state_dict_from_jax
 from waternet_tpu_torch.utils.device import resolve_device
 from waternet_tpu_torch.utils.tensor import arr2ten, ten2arr
 
@@ -63,7 +63,8 @@ def _load_strict(path: Path, origin: str) -> dict[str, torch.Tensor]:
     if not path.exists():
         raise FileNotFoundError(f"{origin} path does not exist: {path}")
     if path.suffix == ".npz":
-        return state_dict_from_jax(load_weights(path))
+        tree = load_weights(path)
+        return can_state_dict_from_jax(tree) if is_can_tree(tree) else state_dict_from_jax(tree)
     if path.suffix in (".pt", ".pth"):
         with open(path, "rb") as f:
             sd = torch.load(f, map_location="cpu", weights_only=True)
@@ -77,9 +78,10 @@ def _load_strict(path: Path, origin: str) -> dict[str, torch.Tensor]:
 def resolve_weights(
     weights=None, search_dirs=(".", "weights")
 ) -> dict[str, torch.Tensor] | None:
-    """Find and load WaterNet weights as a state_dict, or None.
+    """Find and load weights as a state_dict, or None.
 
-    ``.npz`` is the JAX package's flat format (converted HWIO -> OIHW);
+    ``.npz`` is the JAX package's flat format (converted HWIO -> OIHW; a
+    CAN student's tree becomes ``CANStudent``'s ``layers.*`` keys);
     ``.pt``/``.pth`` is the reference's state_dict, whose keys the port's
     model shares. An explicitly named path (argument or env var) that does
     not exist raises rather than falling through to ``./weights``.
@@ -165,3 +167,36 @@ def waternet(
     if dtype == torch.float32:
         return preprocess, postprocess, model
     return preprocess, postprocess, functools.partial(run_model, model, dtype)
+
+
+def waternet_student(
+    weights, device="cuda", dtype: torch.dtype = torch.float32
+) -> Tuple[Callable, Callable, Callable]:
+    """Build the fast tier's ``(preprocess, postprocess, model)`` triple.
+
+    ``weights`` must name a distilled student checkpoint explicitly (a
+    ``train --distill`` product): the implicit resolution is the teacher's,
+    so the two tiers never swap checkpoints silently. The tree is checked
+    against ``CANStudent`` (width and depth inferred), with a named shape
+    diff and a loud tier-mismatch message for WaterNet weights.
+    ``preprocess`` maps one uint8 HWC RGB array to a (1, H, W, 3) float32
+    tensor in [0, 1] on ``device``; ``model(x)`` is the ``CANStudent``
+    (``dtype=torch.bfloat16``: bf16 autocast, float32 out)."""
+    from waternet_tpu_torch.models.can import build_student
+
+    dev = resolve_device(device)
+    check_dtype(dtype)
+    if weights is None:
+        raise FileNotFoundError(
+            "waternet_student needs an explicit student checkpoint path "
+            "(a train --distill product)"
+        )
+    model = build_student(resolve_weights(weights), dev, dtype)
+
+    def preprocess(rgb_arr):
+        return arr2ten(rgb_arr, dev)
+
+    def postprocess(model_out):
+        return ten2arr(model_out)
+
+    return preprocess, postprocess, model

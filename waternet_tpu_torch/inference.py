@@ -7,6 +7,9 @@
     python -m waternet_tpu_torch.inference --source img_dir \\
         --serve-url http://127.0.0.1:8080     # thin client of a server
 
+    python -m waternet_tpu_torch.inference --source img_dir --tier fast \\
+        --student-weights tests/fixtures/distill/student.npz [--quantize]
+
 Outputs land in ``<output-root>/<name or next number>/`` under the source
 file names (a video as ``<stem>.mp4``), as the JAX package's
 ``inference.py`` writes them. A directory of images goes through the
@@ -26,7 +29,13 @@ in the same layout; it builds no engine. Videos (mp4, mpeg, avi): ``--batch-size
 device batch, the tail padded, decoded on a background thread unless
 ``--workers 0``; the run ends with a ``{"video_ingest": {...}}`` line.
 ``--show-split`` writes the left half of the original beside the right
-half of the output, labelled. Runs on CUDA unless ``--device cpu``.
+half of the output, labelled. ``--quantize`` runs static int8
+(``models/quant.py``), calibrated on the source's first images or frames.
+``--tier fast`` serves the distilled CAN student (``--student-weights``;
+raw RGB in, no WB/GC/CLAHE); with ``--serve-url`` the tier travels as
+``X-Tier``, and ``--allow-downgrade`` opts into the server's brown-out
+downgrades, each reported at the end. Runs on CUDA unless ``--device
+cpu``.
 """
 
 from __future__ import annotations
@@ -110,6 +119,24 @@ def parse_args(argv=None):
         "weights, no engine.",
     )
     p.add_argument(
+        "--quantize", action="store_true",
+        help="Static int8 inference (exact int8 convolutions, models/quant.py), calibrated on the "
+        "source's first images or frames.",
+    )
+    p.add_argument(
+        "--tier", default="quality", choices=["quality", "fast"],
+        help="Serving tier: 'quality' (default), the full WaterNet pipeline; 'fast', the "
+        "distilled CAN student (raw RGB in, no WB/GC/CLAHE, ~1/34 the teacher's FLOPs; needs "
+        "--student-weights locally, or a --serve-url server started with one).",
+    )
+    p.add_argument("--student-weights", help="CAN student checkpoint for --tier fast (a train --distill product).")
+    p.add_argument(
+        "--allow-downgrade", action="store_true",
+        help="--serve-url only: opt into brown-out downgrades (X-Tier-Allow-Downgrade: 1): a "
+        "saturated server may serve quality requests from the fast tier instead of shedding "
+        "them; every downgrade is reported at the end.",
+    )
+    p.add_argument(
         "--output-root", default=str(_REPO_ROOT / "output"),
         help="Base directory of the numbered run directories.",
     )
@@ -120,7 +147,57 @@ def parse_args(argv=None):
         p.error("--workers must be >= 0")
     if args.max_buckets < 1:
         p.error("--max-buckets must be >= 1")
+    if args.allow_downgrade and not args.serve_url:
+        # Brown-out is the SERVER's saturation response: local serving has
+        # none, and ignoring the opt-in silently would mislead.
+        p.error("--allow-downgrade is a --serve-url (thin-client) option: brown-out downgrades are "
+                "the server's saturation response")
+    if args.tier == "fast" and args.device_preprocess:
+        p.error("--tier fast is incompatible with --device-preprocess: the student has no "
+                "preprocessing to move")
     return args
+
+
+def calibration_from_sources(files, limit: int = 4):
+    """(x, wb, he, gc) float batches from the user's own inputs, for the
+    int8 activation scales (``models/quant.py``): images directly, a
+    video's first ``limit`` frames. None if nothing is readable (the
+    synthetic defaults then)."""
+    from waternet_tpu_torch.ops.transform import transform_np
+
+    def as_batch(rgb):
+        wb, gc, he = transform_np(rgb)
+        return tuple(a[None].astype(np.float32) / 255.0 for a in (rgb, wb, he, gc))
+
+    return [as_batch(rgb) for rgb in _calibration_frames(files, limit)] or None
+
+
+def raw_calibration_from_sources(files, limit: int = 4):
+    """Raw-frame [0, 1] calibration batches for the int8 student
+    (``quantize_can``): decode only, the student consumes no variants."""
+    return [rgb[None].astype(np.float32) / 255.0 for rgb in _calibration_frames(files, limit)] or None
+
+
+def _calibration_frames(files, limit: int):
+    import cv2
+
+    frames = []
+    for f in files:
+        if len(frames) >= limit:
+            break
+        if f.suffix.lower() in IM_SUFFIXES:
+            im = cv2.imread(str(f))
+            if im is not None:
+                frames.append(cv2.cvtColor(im, cv2.COLOR_BGR2RGB))
+        elif f.suffix.lower() in VID_SUFFIXES:
+            cap = cv2.VideoCapture(str(f))
+            while len(frames) < limit:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+            cap.release()
+    return frames
 
 
 def annotate_split(composite, width_split, label_before="Before", label_after="After"):
@@ -199,6 +276,7 @@ def run_images(engine, paths, savedir: Path, show_split: bool, batch_size: int, 
 def run_images_bucketed(
     engine, paths, savedir: Path, show_split: bool, batch_size: int, workers: int = 2,
     buckets: str = "auto", max_wait_ms: float = 20.0, max_buckets: int = 3, replicas="auto",
+    tier: str = "quality",
 ):
     """Enhance a directory through the shape-bucketed serving engine: every
     image pads up to its bucket and the output crops back, so the stream
@@ -215,8 +293,10 @@ def run_images_bucketed(
     ladder = resolve_ladder(
         buckets, shapes=scan_shapes(paths) if spec == "auto" else None, max_buckets=max_buckets,
     )
+    # The stats name the tier actually served (--tier fast runs the
+    # student as the primary engine).
     batcher = DynamicBatcher(engine, ladder, max_batch=batch_size, max_wait_ms=max_wait_ms,
-                             replicas=replicas)
+                             replicas=replicas, tier_name=tier)
     print(
         f"Serving buckets: {', '.join(batcher.ladder.describe())} "
         f"(batch {batcher.max_batch}, replicas {batcher.n_replicas})"
@@ -249,7 +329,10 @@ def run_images_bucketed(
     return batcher.stats
 
 
-def run_images_remote(url: str, paths, savedir: Path, show_split: bool, max_retries: int = 10) -> int:
+def run_images_remote(
+    url: str, paths, savedir: Path, show_split: bool, max_retries: int = 10,
+    tier: str = "quality", allow_downgrade: bool = False,
+) -> int:
     """Thin client of the HTTP front door: POST each image file's bytes to
     ``<url>/enhance`` and write the answers in local serving's layout.
 
@@ -258,14 +341,24 @@ def run_images_remote(url: str, paths, savedir: Path, show_split: bool, max_retr
     and PNG is lossless, so the files are byte for byte what a local run
     with the server's configuration writes. A 429 (shedding) is retried
     after ``Retry-After``, up to ``max_retries`` times; any other non-200
-    aborts loudly. Returns the images written."""
+    aborts loudly. ``tier`` travels as ``X-Tier`` (checked here too: an
+    unknown name never reaches the server); ``allow_downgrade`` sets
+    ``X-Tier-Allow-Downgrade: 1``, and answers served by another tier
+    (``X-Tier-Served``) are counted and reported at the end. Returns the
+    images written."""
     import http.client
     import time
     from urllib.parse import urlparse
 
     import cv2
 
-    headers = {"Content-Type": "application/octet-stream", "X-Tier": "quality"}
+    tier = str(tier).lower()
+    if tier not in ("quality", "fast"):
+        raise SystemExit(f"unknown tier {tier!r}: valid tiers are 'quality' and 'fast'")
+    headers = {"Content-Type": "application/octet-stream", "X-Tier": tier}
+    if allow_downgrade:
+        headers["X-Tier-Allow-Downgrade"] = "1"
+    downgraded = 0
     u = urlparse(url)
     conn = http.client.HTTPConnection(u.hostname, u.port or 80, timeout=300)
     written = 0
@@ -285,6 +378,8 @@ def run_images_remote(url: str, paths, savedir: Path, show_split: bool, max_retr
                 time.sleep(min(float(resp.getheader("Retry-After", "1")), 5.0))
             if resp.status != 200:
                 raise SystemExit(f"server returned {resp.status} for {path.name}: {body[:200]!r}")
+            if resp.getheader("X-Tier-Served", tier) != tier:
+                downgraded += 1
             out_bgr = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
             out = make_split(bgr, out_bgr) if show_split else out_bgr
             savedir.mkdir(parents=True, exist_ok=True)
@@ -292,6 +387,8 @@ def run_images_remote(url: str, paths, savedir: Path, show_split: bool, max_retr
             written += 1
     finally:
         conn.close()
+    if downgraded:
+        print(f"{downgraded} request(s) served by the fast tier under brown-out (X-Tier-Served)")
     return written
 
 
@@ -379,27 +476,40 @@ def main(argv=None):
                 "request/response gateway; enhance videos locally)"
             )
         savedir = next_run_dir(Path(args.output_root), args.name)
-        n = run_images_remote(args.serve_url, images, savedir, args.show_split)
+        n = run_images_remote(args.serve_url, images, savedir, args.show_split,
+                              tier=args.tier, allow_downgrade=args.allow_downgrade)
         print(f"Saved {n} images to {savedir}")
         return
 
     import torch
 
-    from waternet_tpu_torch.inference_engine import InferenceEngine
+    from waternet_tpu_torch.inference_engine import InferenceEngine, StudentEngine
 
-    engine = InferenceEngine(
-        weights=args.weights,
-        device_preprocess=args.device_preprocess,
-        device=args.device,
-        dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
-    )
+    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    if args.tier == "fast":
+        # The distilled CAN student: raw RGB in, no WB/GC/CLAHE anywhere;
+        # calibrated (with --quantize) on raw frames only.
+        engine = StudentEngine(
+            weights=args.student_weights, dtype=dtype, quantize=args.quantize, device=args.device,
+            calib_batches=raw_calibration_from_sources(files) if args.quantize else None,
+        )
+    else:
+        engine = InferenceEngine(
+            weights=args.weights,
+            device_preprocess=args.device_preprocess,
+            device=args.device,
+            dtype=dtype,
+            quantize=args.quantize,
+            # Calibrate on the ACTUAL inputs so their activations are not clipped.
+            calib_batches=calibration_from_sources(files) if args.quantize else None,
+        )
     savedir = next_run_dir(Path(args.output_root), args.name)
     if images:
         if source.is_dir() and not args.exact_shapes:
             stats = run_images_bucketed(
                 engine, images, savedir, args.show_split, args.batch_size, args.workers,
                 buckets=args.serve_buckets, max_wait_ms=args.max_wait_ms,
-                max_buckets=args.max_buckets, replicas=args.serve_replicas,
+                max_buckets=args.max_buckets, replicas=args.serve_replicas, tier=args.tier,
             )
             n = stats.requests
         else:

@@ -30,6 +30,20 @@ callable, and a bucketed dispatch of a key never warmed counts in
 ``cold_dispatches``: serving pins that count at zero, as the JAX package
 pins its jit caches with ``compile_sentinel``. ``cudnn.benchmark`` stays
 off: autotuning may pick another algorithm in another process.
+
+``quantize=True`` converts the checkpoint to static int8 at construction
+(:mod:`waternet_tpu_torch.models.quant`: exact int8 x int8 -> int32
+convolutions through ``torch._int_mm``); the activation scales calibrate
+on ``calib_batches`` or on synthetic frames.
+
+:class:`StudentEngine` is the fast tier: the distilled CAN student
+(``models/can.py``), raw uint8 frames in, enhanced uint8 frames out, with
+no WB, GC or CLAHE anywhere. It implements the same serving interface
+(``enhance``, ``enhance_async``, ``warm_padded``, ``enhance_padded(_async)``,
+``replica_params``, ``set_params``, ``shape_cache_size``, ``_dev``), so
+the batcher serves it as a second tier on the same ladder
+(``DynamicBatcher(fast_engine=...)``); its native and padded paths are one
+function, uint8 -> /255 -> student.
 """
 
 from __future__ import annotations
@@ -41,41 +55,23 @@ import numpy as np
 import torch
 
 from waternet_tpu_torch.hub import build_model, check_dtype, resolve_weights, run_model
+from waternet_tpu_torch.models import quant
 from waternet_tpu_torch.ops.transform import transform_batch, transform_np
 from waternet_tpu_torch.utils.device import resolve_device
 from waternet_tpu_torch.utils.tensor import ten2arr, to_device
 
 
-class InferenceEngine:
-    def __init__(
-        self,
-        weights=None,
-        params: Optional[dict] = None,
-        device_preprocess: bool = False,
-        device="cuda",
-        dtype: torch.dtype = torch.float32,
-    ):
-        """``weights``: a ``.npz`` (JAX format) or ``.pt`` (reference
-        state_dict) path, else the implicit resolution of
-        :func:`~waternet_tpu_torch.hub.resolve_weights`. ``params``: a
-        loaded state_dict instead of a path (``utils.convert.
-        state_dict_from_jax`` makes one from JAX params). ``device``
-        defaults to CUDA and raises if CUDA is missing; ``"cpu"`` only when
-        asked. ``dtype``: the model's compute dtype, ``torch.float32`` or
-        ``torch.bfloat16``."""
-        self.device = resolve_device(device)
-        self.dtype = check_dtype(dtype)
-        if params is None:
-            params = resolve_weights(weights)
-        if params is None:
-            raise FileNotFoundError(
-                "No weights found: pass weights=..., set WATERNET_TPU_WEIGHTS, "
-                "or place a checkpoint in ./weights (.npz, or the reference's "
-                "exported .pt)."
-            )
-        self.params = params
-        self.model = build_model(params, self.device)
-        self.device_preprocess = device_preprocess
+class _ServingEngineBase:
+    """The serving-interface plumbing both tier engines share: the shape
+    keys behind ``cold_dispatches``, device placement, the canvas padding,
+    the sync wrappers and ``warm_padded``. A subclass sets ``device``,
+    ``params`` and ``model`` and provides ``_build(params, device)``,
+    ``enhance_async`` and ``enhance_padded_async``."""
+
+    device_preprocess = False
+    quantized = False
+
+    def _init_keys(self) -> None:
         self._keys_lock = threading.Lock()
         self._seen: set = set()  # guarded-by: self._keys_lock
         self._warm: set = set()  # guarded-by: self._keys_lock
@@ -84,42 +80,6 @@ class InferenceEngine:
     def enhance(self, rgb_batch) -> np.ndarray:
         """(N, H, W, 3) uint8 RGB -> (N, H, W, 3) uint8 RGB enhanced."""
         return ten2arr(self.enhance_async(rgb_batch))
-
-    def forward(self, x, wb, he, gc) -> torch.Tensor:
-        """The model on four float [0, 1] NHWC batches, in the engine's
-        dtype; returns float32."""
-        return run_model(self.model, self.dtype, x, wb, he, gc)
-
-    @torch.inference_mode()
-    def enhance_async(self, rgb_batch) -> torch.Tensor:
-        """Enqueue the enhancement and return the (N, H, W, 3) float32
-        result tensor on the engine's device, without waiting for it (CUDA
-        runs asynchronously); :func:`~waternet_tpu_torch.utils.tensor.
-        ten2arr` waits and converts."""
-        if len(rgb_batch) == 0:
-            raise ValueError(
-                "enhance_async got an empty batch: enhancement needs at "
-                "least one (H, W, 3) frame"
-            )
-        self._note_shape(("native", tuple(np.shape(rgb_batch)), self.device), padded=False)
-        model = self.model  # one read: a reload swaps the attribute whole
-        if self.device_preprocess:
-            rgb = torch.as_tensor(np.ascontiguousarray(rgb_batch, dtype=np.uint8))
-            rgb = to_device(rgb, self.device)
-            wb, gc, he = transform_batch(rgb)
-            x = rgb.to(torch.float32) / 255.0
-            return run_model(model, self.dtype, x, wb / 255.0, he / 255.0, gc / 255.0)
-        wb, gc, he = zip(*(transform_np(np.asarray(f)) for f in rgb_batch))
-
-        def to_dev(arrs):
-            t = to_device(torch.from_numpy(np.stack(arrs)), self.device)
-            return t.to(torch.float32) / 255.0
-
-        return run_model(model, self.dtype, to_dev(list(rgb_batch)), to_dev(wb), to_dev(he), to_dev(gc))
-
-    # ------------------------------------------------------------------
-    # The padded entry points: the shape-bucketed serving path
-    # ------------------------------------------------------------------
 
     def _note_shape(self, key, padded: bool) -> None:
         """Record that ``key`` ran; a bucketed key that :meth:`warm_padded`
@@ -147,24 +107,29 @@ class InferenceEngine:
         the engine's own model."""
         if device is None:
             return self.model
-        return build_model(self.params, torch.device(device))
+        return self._build(self.params, torch.device(device))
 
     def set_params(self, params: dict) -> None:
-        """Swap in a new state_dict (hot reload): a fresh model replaces the
-        old one whole, so a call that already read ``self.model`` finishes
-        on the old weights. Callers validate the shapes first."""
-        model = build_model(params, self.device)
+        """Swap in new weights (hot reload): a fresh model replaces the old
+        one whole, so a call that already read ``self.model`` finishes on
+        the old weights. Callers validate the shapes first. A quantized
+        engine quantizes the new weights with its calibration batches."""
+        if self.quantized:
+            params = self._quantize(params)
+        model = self._build(params, self.device)
         self.params, self.model = params, model
 
     def pad_raw_to_bucket(self, images, bucket_hw, n_slots=None):
         """Mixed-native-shape uint8 HWC images -> (uint8 canvas batch, (N, 2)
         int32 native shapes) at one ``bucket_hw`` canvas shape.
 
-        Only the raw bytes are padded here (reflect, bottom/right); the
+        Only the raw bytes are padded here (reflect, bottom/right); what
+        happens to the canvas is the engine's business (the quality tier's
         device-preprocess program computes WB/GC/CLAHE statistics over each
-        native region (ops/masked.py). Batch padding repeats the last image
-        (the forward is per-sample independent, so it never changes a real
-        sample's output, and the batch shape never changes)."""
+        native region, ops/masked.py; the student needs none). Batch padding
+        repeats the last image (the forward is per-sample independent, so it
+        never changes a real sample's output, and the batch shape never
+        changes)."""
         from waternet_tpu_torch.serving.bucketing import pad_to_bucket
 
         if not images:
@@ -184,6 +149,130 @@ class InferenceEngine:
             canvases.extend([canvases[-1]] * (n_slots - len(canvases)))
             hw.extend([hw[-1]] * (n_slots - len(hw)))
         return np.stack(canvases), np.asarray(hw, np.int32)
+
+    def enhance_padded(self, images, bucket_hw, n_slots=None, params=None, device=None) -> np.ndarray:
+        """:meth:`enhance_padded_async`, waited for: the (n_slots or N, bh,
+        bw, 3) uint8 batch, uncropped."""
+        return ten2arr(self.enhance_padded_async(images, bucket_hw, n_slots, params, device))
+
+    def warm_padded(self, n_slots: int, bucket_hw, device=None, params=None):
+        """Mark the ``(n_slots, bucket_hw)`` batch on ``device`` warm and
+        return the callable that serves it, ``serve(images, params=None)``
+        -> :meth:`enhance_padded_async`'s result (``params`` defaults to the
+        ones given here). The serving warmup runs one probe batch through
+        it (``serving/warmup.py``), which builds cuDNN's plans and the
+        allocator's blocks for that shape before any request arrives: the
+        port's counterpart of the JAX engine's ``aot_compile_padded``."""
+        dev = self._dev(device)
+        bh, bw = bucket_hw
+        with self._keys_lock:
+            self._warm.add(("padded", (n_slots, bh, bw, 3), dev))
+        bound = params
+
+        def serve(images, params=None):
+            return self.enhance_padded_async(
+                images, bucket_hw, n_slots, params=bound if params is None else params, device=dev,
+            )
+
+        return serve
+
+
+class InferenceEngine(_ServingEngineBase):
+    def __init__(
+        self,
+        weights=None,
+        params: Optional[dict] = None,
+        device_preprocess: bool = False,
+        device="cuda",
+        dtype: torch.dtype = torch.float32,
+        quantize: bool = False,
+        calib_batches=None,
+    ):
+        """``weights``: a ``.npz`` (JAX format) or ``.pt`` (reference
+        state_dict) path, else the implicit resolution of
+        :func:`~waternet_tpu_torch.hub.resolve_weights`. ``params``: a
+        loaded state_dict instead of a path (``utils.convert.
+        state_dict_from_jax`` makes one from JAX params), or, with
+        ``quantize=True``, a qtree of :func:`~waternet_tpu_torch.models.
+        quant.quantize_waternet` used as is. ``device`` defaults to CUDA and
+        raises if CUDA is missing; ``"cpu"`` only when asked. ``dtype``: the
+        model's compute dtype, ``torch.float32`` or ``torch.bfloat16`` (a
+        quantized engine runs its int8 convolutions and float32 between
+        them). ``quantize=True`` converts the checkpoint to static int8,
+        calibrated on ``calib_batches`` ((x, wb, he, gc) float tuples) or on
+        synthetic frames, on ``device``."""
+        self.device = resolve_device(device)
+        self.dtype = check_dtype(dtype)
+        if calib_batches is not None and not quantize:
+            raise ValueError(
+                "calib_batches given without quantize=True: the calibration "
+                "data would be silently dropped"
+            )
+        if params is None:
+            params = resolve_weights(weights)
+        if params is None:
+            raise FileNotFoundError(
+                "No weights found: pass weights=..., set WATERNET_TPU_WEIGHTS, "
+                "or place a checkpoint in ./weights (.npz, or the reference's "
+                "exported .pt)."
+            )
+        self.quantized = bool(quantize)
+        self._calib = calib_batches
+        if quantize and not quant.is_qtree(params):
+            params = self._quantize(params)
+        self.params = params
+        self.model = self._build(params, self.device)
+        self.device_preprocess = device_preprocess
+        self._init_keys()
+
+    def _quantize(self, params: dict) -> dict:
+        return quant.quantize_waternet(params, self._calib, device=self.device)
+
+    def _build(self, params, device):
+        if self.quantized:
+            return quant.QuantWaterNet(params, device)
+        return build_model(params, device)
+
+    def forward(self, x, wb, he, gc) -> torch.Tensor:
+        """The model on four float [0, 1] NHWC batches, in the engine's
+        dtype; returns float32."""
+        return self._run(self.model, x, wb, he, gc)
+
+    def _run(self, model, x, wb, he, gc) -> torch.Tensor:
+        if self.quantized:
+            return model(x, wb, he, gc)
+        return run_model(model, self.dtype, x, wb, he, gc)
+
+    @torch.inference_mode()
+    def enhance_async(self, rgb_batch) -> torch.Tensor:
+        """Enqueue the enhancement and return the (N, H, W, 3) float32
+        result tensor on the engine's device, without waiting for it (CUDA
+        runs asynchronously); :func:`~waternet_tpu_torch.utils.tensor.
+        ten2arr` waits and converts."""
+        if len(rgb_batch) == 0:
+            raise ValueError(
+                "enhance_async got an empty batch: enhancement needs at "
+                "least one (H, W, 3) frame"
+            )
+        self._note_shape(("native", tuple(np.shape(rgb_batch)), self.device), padded=False)
+        model = self.model  # one read: a reload swaps the attribute whole
+        if self.device_preprocess:
+            rgb = torch.as_tensor(np.ascontiguousarray(rgb_batch, dtype=np.uint8))
+            rgb = to_device(rgb, self.device)
+            wb, gc, he = transform_batch(rgb)
+            x = rgb.to(torch.float32) / 255.0
+            return self._run(model, x, wb / 255.0, he / 255.0, gc / 255.0)
+        wb, gc, he = zip(*(transform_np(np.asarray(f)) for f in rgb_batch))
+
+        def to_dev(arrs):
+            t = to_device(torch.from_numpy(np.stack(arrs)), self.device)
+            return t.to(torch.float32) / 255.0
+
+        return self._run(model, to_dev(list(rgb_batch)), to_dev(wb), to_dev(he), to_dev(gc))
+
+    # ------------------------------------------------------------------
+    # The padded entry points: the shape-bucketed serving path
+    # ------------------------------------------------------------------
 
     def preprocess_padded(self, images, bucket_hw, n_slots=None, device=None):
         """Mixed-native-shape uint8 HWC images -> the network's four float32
@@ -244,32 +333,107 @@ class InferenceEngine:
             rgb = to_device(torch.from_numpy(canvas), dev)
             wb, gc, he = transform_masked_batch(rgb, to_device(torch.from_numpy(hw), dev))
             x = rgb.to(torch.float32) / 255.0
-            return run_model(model, self.dtype, x, wb / 255.0, he / 255.0, gc / 255.0)
+            return self._run(model, x, wb / 255.0, he / 255.0, gc / 255.0)
         x, wb, he, gc = self.preprocess_padded(images, bucket_hw, n_slots, device=dev)
-        return run_model(model, self.dtype, x, wb, he, gc)
+        return self._run(model, x, wb, he, gc)
 
-    def enhance_padded(self, images, bucket_hw, n_slots=None, params=None, device=None) -> np.ndarray:
-        """:meth:`enhance_padded_async`, waited for: the (n_slots or N, bh,
-        bw, 3) uint8 batch, uncropped."""
-        return ten2arr(self.enhance_padded_async(images, bucket_hw, n_slots, params, device))
 
-    def warm_padded(self, n_slots: int, bucket_hw, device=None, params=None):
-        """Mark the ``(n_slots, bucket_hw)`` batch on ``device`` warm and
-        return the callable that serves it, ``serve(images, params=None)``
-        -> :meth:`enhance_padded_async`'s result (``params`` defaults to the
-        ones given here). The serving warmup runs one probe batch through
-        it (``serving/warmup.py``), which builds cuDNN's plans and the
-        allocator's blocks for that shape before any request arrives: the
-        port's counterpart of the JAX engine's ``aot_compile_padded``."""
-        dev = self._dev(device)
-        bh, bw = bucket_hw
-        with self._keys_lock:
-            self._warm.add(("padded", (n_slots, bh, bw, 3), dev))
-        bound = params
+class StudentEngine(_ServingEngineBase):
+    """Fast-tier inference engine: the distilled CAN student
+    (``models/can.py``), raw uint8 frames in, enhanced uint8 frames out; no
+    WB/GC/CLAHE anywhere, on host or device.
 
-        def serve(images, params=None):
-            return self.enhance_padded_async(
-                images, bucket_hw, n_slots, params=bound if params is None else params, device=dev,
+    ``weights``/``params`` must name a student explicitly (a ``train
+    --distill`` product): the implicit ``./weights`` resolution is the
+    quality tier's. Width and depth are inferred from the weights and
+    checked against ``CANStudent``, loudly when given WaterNet weights.
+    ``quantize=True`` converts the student to static int8
+    (:func:`~waternet_tpu_torch.models.quant.quantize_can`), calibrated on
+    ``calib_batches`` (raw float frames in [0, 1]) or synthetic frames.
+    The engine is one device a replica: the student is never sharded."""
+
+    def __init__(
+        self,
+        weights=None,
+        params: Optional[dict] = None,
+        dtype: torch.dtype = torch.float32,
+        quantize: bool = False,
+        calib_batches=None,
+        device="cuda",
+    ):
+        from waternet_tpu_torch.models.can import can_config_from_params
+
+        self.device = resolve_device(device)
+        self.dtype = check_dtype(dtype)
+        if calib_batches is not None and not quantize:
+            raise ValueError(
+                "calib_batches given without quantize=True: the calibration "
+                "data would be silently dropped"
             )
+        if params is None:
+            if weights is None:
+                raise FileNotFoundError(
+                    "the fast tier needs explicit student weights: pass "
+                    "--student-weights (a train --distill product); the "
+                    "implicit ./weights resolution is reserved for the "
+                    "quality-tier teacher checkpoint"
+                )
+            params = resolve_weights(weights)
+        self.quantized = bool(quantize)
+        self._calib = calib_batches
+        # Infers (width, depth) and checks the tree fits CANStudent, loudly
+        # for WaterNet weights.
+        self.width, self.depth = can_config_from_params(params)
+        if quantize:
+            params = self._quantize(params)
+        self.params = params
+        self.model = self._build(params, self.device)
+        self._init_keys()
 
-        return serve
+    def _quantize(self, params: dict) -> dict:
+        from waternet_tpu_torch.models.can import student_state_dict
+
+        return quant.quantize_can(student_state_dict(params), self._calib, device=self.device)
+
+    def _build(self, params, device):
+        from waternet_tpu_torch.models.can import build_student
+
+        if self.quantized:
+            return quant.QuantCAN(params, device)
+        return build_student(params, device, self.dtype)
+
+    @staticmethod
+    def _fused(model, rgb_u8: torch.Tensor) -> torch.Tensor:
+        """uint8 batch (native or bucket canvas) -> enhanced float32 batch:
+        the native and padded paths are this one function."""
+        return model(rgb_u8.to(torch.float32) / 255.0)
+
+    @torch.inference_mode()
+    def enhance_async(self, rgb_batch) -> torch.Tensor:
+        """Enqueue the enhancement and return the (N, H, W, 3) float32 result
+        on the engine's device without waiting (the oversize fallback's
+        path, one new shape key per unique shape)."""
+        if len(rgb_batch) == 0:
+            raise ValueError(
+                "enhance_async got an empty batch: enhancement needs at "
+                "least one (H, W, 3) frame"
+            )
+        self._note_shape(("native", tuple(np.shape(rgb_batch)), self.device), padded=False)
+        rgb = to_device(torch.as_tensor(np.ascontiguousarray(rgb_batch, dtype=np.uint8)), self.device)
+        return self._fused(self.model, rgb)
+
+    @torch.inference_mode()
+    def enhance_padded_async(self, images, bucket_hw, n_slots=None, params=None, device=None):
+        """Enqueue the bucketed student forward and return the (n_slots or
+        N, bh, bw, 3) float32 batch without waiting; callers crop row ``i``
+        back to ``images[i].shape``. Padding is reflect, bottom/right; the
+        student has no per-image statistics, so the pad touches only the
+        seam band within :func:`~waternet_tpu_torch.models.can.
+        can_receptive_radius` (64 px at depth 7, against WaterNet's 13)."""
+        dev = self._dev(device)
+        model = self.model if params is None else params
+        bh, bw = bucket_hw
+        n = len(images) if n_slots is None else n_slots
+        self._note_shape(("padded", (n, bh, bw, 3), dev), padded=True)
+        canvas, _ = self.pad_raw_to_bucket(images, bucket_hw, n_slots)
+        return self._fused(model, to_device(torch.from_numpy(canvas), dev))

@@ -15,11 +15,12 @@ import torch
 
 # Peak TFLOP/s per card, by ``torch.cuda.get_device_name`` substring, from
 # NVIDIA's H100 datasheet: dense BF16 on the tensor cores (the datasheet's
-# figures with sparsity, halved) and FP32 outside them (TF32 is off in the
-# port). The more specific names come first.
+# figures with sparsity, halved), FP32 outside them (TF32 is off in the
+# port) and dense INT8 TOP/s on the tensor cores (the int8 path's
+# ``torch._int_mm``). The more specific names come first.
 PEAK_TFLOPS_BY_NAME = (
-    ("H100 PCIe", {"bf16": 756.5, "fp32": 51.0}),
-    ("H100 80GB HBM3", {"bf16": 989.5, "fp32": 67.0}),  # SXM5
+    ("H100 PCIe", {"bf16": 756.5, "fp32": 51.0, "int8": 1513.0}),
+    ("H100 80GB HBM3", {"bf16": 989.5, "fp32": 67.0, "int8": 1979.0}),  # SXM5
 )
 
 #: Overrides the table for any device, as in the JAX package.
@@ -27,7 +28,8 @@ PEAK_ENV = "WATERNET_TPU_PEAK_TFLOPS"
 
 
 def peak_tflops(device, precision: str = "bf16") -> Optional[float]:
-    """Peak TFLOP/s of ``device`` for ``precision`` ("bf16" or "fp32"), or
+    """Peak TFLOP/s of ``device`` for ``precision`` ("bf16", "fp32" or
+    "int8", the last in TOP/s), or
     None for the CPU and for a card the table does not list.
     ``WATERNET_TPU_PEAK_TFLOPS`` overrides the table."""
     env = os.environ.get(PEAK_ENV)

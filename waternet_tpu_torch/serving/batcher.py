@@ -1,9 +1,11 @@
 """Dynamic micro-batching over shape buckets, plus the exact-shape
 batcher of the inference CLI's ``--exact-shapes`` path.
 
-The port of the JAX package's ``serving/batcher.py``. The tier routing
-serves ``quality`` only: the fast tier (``tier="fast"``, its student
-engine, brown-out downgrades) is ROADMAP Queue A item 7.
+The port of the JAX package's ``serving/batcher.py``, with its tier
+routing: ``fast_engine`` (a :class:`~waternet_tpu_torch.inference_engine.
+StudentEngine`) gets its own replica pool on the same devices and ladder,
+requests pick a tier at submit, and opted-in quality requests downgrade to
+the fast tier past ``downgrade_watermark``.
 
 :class:`DynamicBatcher` is the serving engine's core: a request queue
 with ``max_batch`` / ``max_wait_ms`` deadlines that coalesces concurrent
@@ -65,10 +67,10 @@ class QueueFull(RuntimeError):
 
 class UnknownTier(ValueError):
     """submit() refused: the requested serving tier is not served by this
-    batcher. The port serves ``quality`` only (the fast tier is ROADMAP
-    Queue A item 7). Raised loudly (the HTTP front door answers 400)
-    instead of silently serving the wrong model: a tier is a quality
-    contract, not a routing hint."""
+    batcher — either a name outside {quality, fast}, or ``fast`` on a
+    batcher built without a ``fast_engine``. Raised loudly (the HTTP
+    front door answers 400) instead of silently serving the wrong model:
+    a tier is a quality contract, not a routing hint."""
 
 
 class RequestCancelled(RuntimeError):
@@ -92,13 +94,14 @@ class DeadlineExpired(RuntimeError):
 
 class _Request:
     __slots__ = ("image", "future", "t_submit", "t_admit", "deadline",
-                 "tier", "retries", "req_id")
+                 "tier", "retries", "allow_downgrade", "req_id")
 
     def __init__(
         self,
         image: np.ndarray,
         deadline: Optional[float] = None,
         tier: str = "quality",
+        allow_downgrade: bool = False,
         req_id: Optional[str] = None,
     ):
         self.image = image
@@ -109,8 +112,9 @@ class _Request:
         self.req_id = req_id
         # Re-dispatch budget consumed by the replica pool when this
         # request's batch demonstrably fails (docs/SERVING.md "Fault
-        # isolation").
+        # isolation"); ``allow_downgrade`` is the brown-out opt-in.
         self.retries = 0
+        self.allow_downgrade = allow_downgrade
         self.future: Future = Future()
         # t_submit anchors the reported request latency; t_admit (set when
         # the dispatcher moves the request into its bucket's pending list)
@@ -153,7 +157,17 @@ class DynamicBatcher:
       yet resolved: queued, coalescing, or in flight on a replica). At
       the bound, submit() raises :class:`QueueFull` instead of queueing
       forever; servers set it to their real watermark (docs/SERVING.md
-      "Front door").
+      "Front door");
+    * ``fast_engine`` — a :class:`~waternet_tpu_torch.inference_engine.
+      StudentEngine` enabling per-request tier routing (docs/SERVING.md
+      "Quality tiers"): the distilled CAN student gets its OWN replica
+      pool on the same devices and ladder, requests pick a tier at
+      submit (``tier="fast"``; default "quality" is byte-identical to a
+      tier-less batcher), coalescing is per (tier, bucket), and
+      unknown/unconfigured tiers raise :class:`UnknownTier`;
+    * ``downgrade_watermark`` — the brown-out point: at or past this
+      many outstanding quality requests, an opted-in quality request
+      (``allow_downgrade``) is served by the fast tier (None disables).
     """
 
     def __init__(
@@ -167,14 +181,34 @@ class DynamicBatcher:
         replicas=1,
         max_inflight_per_replica: int = 2,
         max_queue: int = 8192,
+        fast_engine=None,
+        tier_name: str = "quality",
         supervision: Optional[SupervisionConfig] = None,
+        downgrade_watermark: Optional[int] = None,
         coalesce: str = "fixed",
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
-        self._default_tier = "quality"
+        if downgrade_watermark is not None and downgrade_watermark < 1:
+            raise ValueError(
+                f"downgrade_watermark must be >= 1 (or None to disable "
+                f"brown-out downgrades), got {downgrade_watermark}"
+            )
+        # ``tier_name`` labels the PRIMARY engine's pool in the stats —
+        # "fast" when the CLI serves a StudentEngine alone (--tier fast).
+        # A two-tier batcher keeps the primary as "quality".
+        if tier_name not in ("quality", "fast"):
+            raise ValueError(
+                f"tier_name must be 'quality' or 'fast', got {tier_name!r}"
+            )
+        if fast_engine is not None and tier_name != "quality":
+            raise ValueError(
+                "a two-tier batcher's primary engine IS the quality tier; "
+                "tier_name overrides are for single-engine batchers"
+            )
+        self._default_tier = tier_name
         self.engine = engine
         self.max_batch = int(max_batch)
         self.ladder = ladder = fit_ladder_to_engine(ladder, engine)
@@ -190,6 +224,9 @@ class DynamicBatcher:
         self.supervision = (
             supervision if supervision is not None else SupervisionConfig()
         )
+        # A plain attribute read at submit: /admin/policy moves it at run
+        # time, and the next submit sees the new value.
+        self.downgrade_watermark = downgrade_watermark
         self._pool = ReplicaPool(
             engine, ladder, [self.max_batch],
             n_replicas=resolve_replicas(replicas, engine),
@@ -197,10 +234,26 @@ class DynamicBatcher:
             stats=self.stats, warmup_verbose=warmup_verbose,
             tier=self._default_tier, supervision=self.supervision,
         )
+        # Per-request tier routing: ``fast_engine`` gets its OWN replica
+        # pool on the same devices, ladder and slot count — its own warmed
+        # batch shapes, launch/completion threads and per-tier stats —
+        # while quality traffic flows through the pool above
+        # byte-identically to a tier-less batcher.
         self._pools = {self._default_tier: self._pool}
+        if fast_engine is not None:
+            self._pools["fast"] = ReplicaPool(
+                fast_engine, ladder, [self.max_batch],
+                n_replicas=self._pool.n_replicas,
+                max_inflight_per_replica=max_inflight_per_replica,
+                stats=self.stats, warmup_verbose=warmup_verbose,
+                tier="fast", supervision=self.supervision,
+            )
         self._requests: queue.Queue = queue.Queue()
         self._closed = False  # guarded-by: self._submit_lock
         self.max_queue = int(max_queue)
+        # Per-tier outstanding counts: the quality tier's backlog is the
+        # brown-out pressure gauge.
+        self._tier_backlog = {t: 0 for t in self._pools}  # guarded-by: self._submit_lock
         # Outstanding-request count: submitted and not yet RESOLVED —
         # queued, coalescing, or in flight on a replica. This is the
         # admission-control gauge and the QueueFull bound: the
@@ -244,7 +297,8 @@ class DynamicBatcher:
 
     @property
     def tiers(self) -> Tuple[str, ...]:
-        """The tier names this batcher serves: ``("quality",)``."""
+        """The tier names this batcher serves ("fast" iff a
+        ``fast_engine`` was configured or the primary is named so)."""
         return tuple(sorted(self._pools))
 
     # -- public API ----------------------------------------------------
@@ -254,6 +308,7 @@ class DynamicBatcher:
         image: np.ndarray,
         deadline: Optional[float] = None,
         tier: Optional[str] = None,
+        allow_downgrade: bool = False,
         request_id: Optional[str] = None,
     ) -> Future:
         """Queue one (H, W, 3) uint8 image; resolves to its enhanced
@@ -270,9 +325,17 @@ class DynamicBatcher:
         request. Either way ``stats.deadline_expired`` counts it. Raises
         :class:`QueueFull` at the ``max_queue`` bound.
 
-        ``tier`` (None = ``"quality"``) names the serving model; any
-        other name raises :class:`UnknownTier`. The returned future
-        carries the tier that serves it as ``.tier``.
+        ``tier`` (None = the batcher's primary tier) names the serving
+        model: "quality" is the full WaterNet pipeline, "fast" the CAN
+        student pool; any other name, or a tier this batcher does not
+        serve, raises :class:`UnknownTier`.
+
+        ``allow_downgrade`` is the brown-out opt-in: when the quality
+        tier's outstanding count sits at/past ``downgrade_watermark`` and
+        a fast pool is configured, an opted-in quality request is served
+        by the fast tier (counted in ``stats.downgraded``). Requests that
+        did not opt in are never downgraded. The returned future carries
+        the tier that serves it as ``.tier``.
         """
         tier = self._default_tier if tier is None else str(tier).lower()
         if tier not in ("quality", "fast"):
@@ -281,10 +344,15 @@ class DynamicBatcher:
                 "'fast'"
             )
         if tier not in self._pools:
+            hint = (
+                " — the fast tier needs a student engine (server: "
+                "--student-weights)"
+                if tier == "fast"
+                else ""
+            )
             raise UnknownTier(
                 f"tier {tier!r} is not configured on this batcher "
-                f"(serving: {', '.join(sorted(self._pools))}); the port's "
-                "fast tier is ROADMAP Queue A item 7"
+                f"(serving: {', '.join(sorted(self._pools))}){hint}"
             )
         if image.ndim != 3 or image.shape[-1] != 3:
             raise ValueError(
@@ -305,13 +373,17 @@ class DynamicBatcher:
                 "deadline already past at admission (the coalescing window "
                 "plus compute cannot finish in negative time)"
             )
-        req = _Request(image, deadline=deadline, tier=tier, req_id=request_id)
-        req.future.tier = tier
-        # The callback must not capture the request: Future keeps its
+        req = _Request(
+            image, deadline=deadline, tier=tier,
+            allow_downgrade=allow_downgrade, req_id=request_id,
+        )
+        # The callback reads the served tier off the FUTURE (set below,
+        # before enqueue), not off a captured request: Future keeps its
         # callbacks after resolution, so a req-capturing closure would
         # pin every input image for as long as the caller holds the
         # future.
         req.future.add_done_callback(self._on_request_resolved)
+        downgraded = False
         with self._submit_lock:
             if self._closed:
                 raise RuntimeError("DynamicBatcher is closed")
@@ -321,16 +393,36 @@ class DynamicBatcher:
                     f"{self._backlog} requests outstanding, max_queue="
                     f"{self.max_queue}: shedding instead of queueing forever"
                 )
+            if (
+                allow_downgrade
+                and req.tier == "quality"
+                and "fast" in self._pools
+                and self.downgrade_watermark is not None
+                and self._tier_backlog.get("quality", 0)
+                >= self.downgrade_watermark
+            ):
+                # Brown-out: the quality queue is saturated and the
+                # request opted in — a fast-tier answer now beats a 429.
+                req.tier = "fast"
+                downgraded = True
+            req.future.tier = req.tier  # the tier that will actually serve
             self._backlog += 1
+            self._tier_backlog[req.tier] = self._tier_backlog.get(req.tier, 0) + 1
             self._requests.put(req)
+        if downgraded:
+            self.stats.record_downgrade()
         return req.future
 
     def _on_request_resolved(self, future) -> None:
         """Done-callback on every request future: runs on whichever
         thread resolves it (replica completion, error path, deadline
-        drop), so the outstanding count can never leak."""
+        drop), so the outstanding counts — global and per-tier — can
+        never leak. The tier rides the future itself."""
+        tier = getattr(future, "tier", None)
         with self._submit_lock:
             self._backlog -= 1
+            if tier is not None:
+                self._tier_backlog[tier] = self._tier_backlog.get(tier, 0) - 1
 
     def queue_depth(self) -> int:
         """Live outstanding-request count (queued + coalescing + in
@@ -340,6 +432,12 @@ class DynamicBatcher:
         with self._submit_lock:
             return self._backlog
 
+    def tier_depth(self, tier: str) -> int:
+        """Live outstanding-request count for one tier — the quality
+        tier's is the brown-out pressure gauge."""
+        with self._submit_lock:
+            return self._tier_backlog.get(tier, 0)
+
     def health(self) -> dict:
         """Live per-tier replica health map, ``{tier: {index: state}}``
         (docs/SERVING.md "Fault isolation") — what ``/healthz`` degrades
@@ -347,11 +445,12 @@ class DynamicBatcher:
         return {t: pool.health() for t, pool in self._pools.items()}
 
     def set_params(self, params) -> None:
-        """Hot weight reload: atomically swap every replica's weights
-        between batches (in-flight batches keep the model they were
-        launched with; no request is dropped). The caller validates
-        names/shapes/dtypes first; same-shaped weights meet no new batch
-        shape, so a reload causes no cold dispatch."""
+        """Hot weight reload of the QUALITY tier: atomically swap every
+        replica's weights between batches (in-flight batches keep the
+        model they were launched with; no request is dropped). The caller
+        validates names/shapes/dtypes first; same-shaped weights meet no
+        new batch shape, so a reload causes no cold dispatch. The fast
+        tier keeps its own student (restart to swap a student)."""
         self._pool.set_params(params)
 
     def map_ordered(

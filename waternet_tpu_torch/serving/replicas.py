@@ -596,8 +596,9 @@ class ReplicaPool:
         self.stats.set_replicas(n_replicas)
         self.supervision = supervision if supervision is not None else SupervisionConfig()
         # Which serving tier this pool's batches/requests count under
-        # (docs/SERVING.md "Quality tiers"): "quality", the WaterNet
-        # pipeline (the fast tier's student pool is ROADMAP Queue A item 7).
+        # (docs/SERVING.md "Quality tiers"): "quality" for the WaterNet
+        # pipeline, "fast" for the CAN student's pool of a tier-routing
+        # batcher.
         self.tier = str(tier)
         self.stats.declare_tier(self.tier)
         self._lock = threading.Lock()

@@ -34,23 +34,32 @@ one port and feeds decoded request images straight into the
   still 200) / ``unhealthy`` (no available replica, 503). ``GET /stats``
   exposes the live :class:`ServingStats` schema; ``GET /metrics`` the
   same summary in Prometheus text format.
-* **Fault isolation.** The batcher's replica pool runs under supervision
-  (docs/SERVING.md "Fault isolation"): a crashing or hung replica is
-  quarantined, its requests transparently re-dispatched (byte-identical
-  results), and the replica re-warmed and reintegrated. The
-  ``gateway_crash``, ``gateway_hang`` and ``reject_admit`` fault kinds
-  (``WATERNET_FAULTS``) fire here.
+* **Fault isolation + brown-out.** The batcher's replica pools run under
+  supervision (docs/SERVING.md "Fault isolation"): a crashing or hung
+  replica is quarantined, its requests transparently re-dispatched
+  (byte-identical results), and the replica re-warmed and reintegrated.
+  The ``gateway_crash``, ``gateway_hang`` and ``reject_admit`` fault
+  kinds (``WATERNET_FAULTS``) fire here. Quality requests that opt in
+  via ``X-Tier-Allow-Downgrade: 1`` are served by the fast tier instead
+  of shed once the quality queue passes the downgrade watermark
+  (``POST /admin/policy`` moves it at run time); ``X-Tier-Served`` on
+  the response names the tier that actually served.
+* **Quality tiers.** ``--student-weights`` adds the fast tier, the
+  distilled CAN student (``StudentEngine``) in its own replica pool on
+  the same ladder; ``X-Tier: fast`` picks it per request. Without a
+  student, ``X-Tier: fast`` answers 400 "fast tier not configured".
 * **Response cache** (off by default). ``--response-cache N`` arms a
   bounded LRU over rendered ``/enhance`` answers keyed on (payload
   digest, tier, bucket ladder, weights generation) — hits stamp
-  ``X-Cache: hit``, reloads invalidate.
+  ``X-Cache: hit``, reloads invalidate, and downgraded answers are never
+  stored.
 
 Endpoints: ``POST /enhance`` (image file bytes in, PNG out — the body is
 whatever ``cv2.imdecode`` reads, which is exactly what ``cv2.imread``
 reads on the local path, so the CLI and the service stay behaviorally
 interchangeable via ``python -m waternet_tpu_torch.inference
 --serve-url``); ``GET /healthz``; ``GET /stats``; ``GET /metrics``;
-``POST /admin/reload``. ``POST /stream`` answers 404: stream sessions
+``POST /admin/reload``; ``POST /admin/policy``. ``POST /stream`` answers 404: stream sessions
 are ROADMAP Queue A item 6 (streams), with the fleet router's worker
 identity and heartbeats.
 
@@ -171,7 +180,6 @@ def _decode_request_image(body: bytes):
 #: server CLI's flags of these parts exit 2 naming their ROADMAP item.
 LATER = {
     "streams": "ROADMAP Queue A item 6 (streams: serving/streams.py)",
-    "fast tier": "ROADMAP Queue A item 7 (fast tier)",
 }
 
 # Reusable per-thread BGR staging canvas for the encode path (the
@@ -244,6 +252,8 @@ class ServingServer:
         coalesce: str = "fixed",
         png_level: Optional[int] = None,
         encode_threads: int = 2,
+        fast_engine=None,
+        downgrade_watermark: Optional[int] = None,
     ):
         if png_level is not None and not (0 <= int(png_level) <= 9):
             raise ValueError(
@@ -257,7 +267,14 @@ class ServingServer:
             # Shed before QueueFull would fire: the watermark is the soft
             # limit with headroom for requests already racing past it.
             admit_watermark = max(1, (3 * max_queue) // 4)
+        if downgrade_watermark is None:
+            # Brown-out trips where shedding would: an opted-in quality
+            # request at the admit watermark downgrades instead of 429ing
+            # (only meaningful with a fast engine configured).
+            downgrade_watermark = admit_watermark
         self.engine = engine
+        self.fast_engine = fast_engine
+        self.downgrade_watermark = int(downgrade_watermark)
         self.ladder = ladder
         self.host = host
         self.port = int(port)
@@ -281,7 +298,8 @@ class ServingServer:
         self.stats = stats if stats is not None else ServingStats()
         # Content-addressed /enhance response cache (0 entries = off).
         # Keyed on (payload digest, tier, ladder identity, weights
-        # generation).
+        # generation); only never-downgraded answers are stored, so a hit
+        # is policy-correct for any requester of that tier.
         self.response_cache = (
             ResponseCache(
                 response_cache, ladder_id=",".join(ladder.describe())
@@ -413,7 +431,9 @@ class ServingServer:
                     stats=self.stats,
                     replicas=self.replicas,
                     max_queue=self.max_queue,
+                    fast_engine=self.fast_engine,
                     supervision=self.supervision,
+                    downgrade_watermark=self.downgrade_watermark,
                     coalesce=self.coalesce,
                 )
 
@@ -636,6 +656,12 @@ class ServingServer:
                     writer, 405, {"error": "POST {\"weights\": path}"}
                 )
             return await self._reload(body, writer) and not want_close
+        if path == "/admin/policy":
+            if method != "POST":
+                return self._json(
+                    writer, 405, {"error": 'POST {"downgrade_watermark": N|null}'},
+                )
+            return self._policy(body, writer) and not want_close
         return self._json(writer, 404, {"error": f"no route {path}"})
 
     def _healthz(self, writer) -> bool:
@@ -734,17 +760,25 @@ class ServingServer:
                 extra=(("Retry-After", "1"),),
             )
 
-        # Tier routing (docs/SERVING.md "Quality tiers"): X-Tier names the
-        # serving model; the port serves "quality" only, and any other
-        # name is a loud 400 — a tier is a quality contract, not a
-        # routing hint.
+        # Tier routing (docs/SERVING.md "Quality tiers"): X-Tier selects
+        # the serving model per request; unknown names — and "fast" on a
+        # server started without --student-weights — are 400, loudly:
+        # a tier is a quality contract, not a routing hint.
         tier = headers.get("x-tier", "quality").strip().lower()
+        if tier not in ("quality", "fast"):
+            return jresp(400, {"error": f"unknown tier {tier!r}", "tiers": list(self.batcher.tiers)})
         if tier not in self.batcher.tiers:
-            why = (
-                f"the fast tier is {LATER['fast tier']}" if tier == "fast"
-                else f"unknown tier {tier!r}"
-            )
-            return jresp(400, {"error": why, "tiers": list(self.batcher.tiers)})
+            return jresp(400, {
+                "error": "fast tier not configured on this server "
+                "(start the server with --student-weights)",
+                "tiers": list(self.batcher.tiers),
+            })
+        # Brown-out opt-in: an X-Tier-Allow-Downgrade'd quality request
+        # under saturation is served by the fast tier instead of shed;
+        # X-Tier-Served names the tier that actually served. Never
+        # applied without the opt-in.
+        allow_downgrade = headers.get("x-tier-allow-downgrade", "").strip().lower() in ("1", "true", "yes")
+        downgrade_eligible = allow_downgrade and tier == "quality" and "fast" in self.batcher.tiers
 
         # Deadline parse + up-front feasibility: a budget the server
         # already knows it cannot meet is refused before it queues.
@@ -803,12 +837,23 @@ class ServingServer:
             )
         depth = self.batcher.queue_depth()
         if depth >= self.admit_watermark:
-            self.stats.record_shed()
-            return jresp(
-                429,
-                {"error": "overloaded", "queue_depth": depth},
-                extra=(("Retry-After", "1"),),
+            # Brown-out exemption ONLY when the downgrade will actually
+            # fire (the batcher's gauge is the QUALITY-tier backlog):
+            # under a fast-tier flood the quality backlog is small, no
+            # downgrade would happen, and admitting past the watermark
+            # would just queue to QueueFull — shed instead.
+            will_downgrade = (
+                downgrade_eligible
+                and self.batcher.downgrade_watermark is not None
+                and self.batcher.tier_depth("quality") >= self.batcher.downgrade_watermark
             )
+            if not will_downgrade:
+                self.stats.record_shed()
+                return jresp(
+                    429,
+                    {"error": "overloaded", "queue_depth": depth},
+                    extra=(("Retry-After", "1"),),
+                )
 
         loop = asyncio.get_running_loop()
         # In-flight from BEFORE the decode: the drain poll must not see
@@ -832,7 +877,8 @@ class ServingServer:
                 )
             try:
                 fut = self.batcher.submit(
-                    rgb, deadline=deadline, tier=tier, request_id=req_id,
+                    rgb, deadline=deadline, tier=tier,
+                    allow_downgrade=allow_downgrade, request_id=req_id,
                 )
             except UnknownTier as err:
                 return jresp(400, {"error": str(err)})
@@ -872,7 +918,11 @@ class ServingServer:
             served = getattr(fut, "tier", tier)
             cache_extra = ()
             if cache_key is not None:
-                self.response_cache.put(cache_key, png)
+                # Brown-out policy: a downgraded answer (served != the
+                # requested tier) must never be stored — a later
+                # non-opt-in request with the same bytes would hit it.
+                if served == tier:
+                    self.response_cache.put(cache_key, png)
                 cache_extra = (("X-Cache", "miss"),)
             keep = self._respond(
                 writer, 200, png, ctype="image/png",
@@ -962,6 +1012,36 @@ class ServingServer:
         print(f"waternet-serve: reloaded weights from {path}", flush=True)
         return self._json(writer, 200, {"reloaded": True, "weights": path})
 
+    # -- /admin/policy -------------------------------------------------
+
+    def _policy(self, body, writer) -> bool:
+        """Runtime brown-out control: a fleet router POSTs a lowered
+        ``downgrade_watermark`` on sustained SLO burn so opted-in quality
+        traffic downgrades earlier, and restores it later. The watermark
+        is a plain attribute the batcher reads at submit, so the shift
+        applies to the next request — no restart, no reconfigure."""
+        if not self.ready.is_set():
+            return self._json(writer, 503, {"error": "not ready"})
+        try:
+            payload = json.loads(body or b"{}")
+            if not isinstance(payload, dict):
+                raise ValueError
+        except ValueError:
+            return self._json(writer, 400, {"error": 'body must be JSON {"downgrade_watermark": N|null}'})
+        if "downgrade_watermark" in payload:
+            value = payload["downgrade_watermark"]
+            bad = value is not None and (isinstance(value, bool) or not isinstance(value, int) or value < 1)
+            if bad:
+                return self._json(
+                    writer, 400,
+                    {"error": f"downgrade_watermark must be a positive int or null, got {value!r}"},
+                )
+            self.batcher.downgrade_watermark = value
+        return self._json(writer, 200, {"policy": {
+            "downgrade_watermark": self.batcher.downgrade_watermark,
+            "admit_watermark": self.admit_watermark,
+        }})
+
 
 # ----------------------------------------------------------------------
 # CLI
@@ -972,8 +1052,6 @@ class ServingServer:
 _LATER_FLAGS = {
     "max_streams": "streams", "stream_window": "streams",
     "stream_reuse_threshold": "streams", "stream_max_reuse_run": "streams",
-    "student_weights": "fast tier", "student_quantize": "fast tier",
-    "downgrade_watermark": "fast tier",
 }
 
 
@@ -1092,6 +1170,25 @@ def parse_args(argv=None):
     parser.add_argument(
         "--precision", type=str, default="fp32", choices=["fp32", "bf16"],
     )
+    parser.add_argument(
+        "--student-weights", type=str, default=None,
+        help="CAN student checkpoint (a train --distill product): enables "
+        "the fast tier — requests with 'X-Tier: fast' are served by the "
+        "student (raw RGB in, no WB/GC/CLAHE anywhere) from its own warmed "
+        "replica pool. Without it, fast-tier requests are refused with 400.",
+    )
+    parser.add_argument(
+        "--student-quantize", action="store_true", default=False,
+        help="Serve the fast tier as static int8 (models/quant.py "
+        "quantize_can). Requires --student-weights.",
+    )
+    parser.add_argument(
+        "--downgrade-watermark", type=int, default=None,
+        help="Quality-tier queue depth past which a quality request that "
+        "opted in (X-Tier-Allow-Downgrade: 1) is served by the fast tier "
+        "instead of shed (default: --admit-watermark). Needs "
+        "--student-weights; never applied to requests that did not opt in.",
+    )
     later = parser.add_argument_group(
         "parts of a later slice (setting one exits 2 naming its ROADMAP item)"
     )
@@ -1099,9 +1196,6 @@ def parse_args(argv=None):
     later.add_argument("--stream-window", type=int, default=None)
     later.add_argument("--stream-reuse-threshold", type=float, default=None)
     later.add_argument("--stream-max-reuse-run", type=int, default=None)
-    later.add_argument("--student-weights", type=str, default=None)
-    later.add_argument("--student-quantize", action="store_true", default=None)
-    later.add_argument("--downgrade-watermark", type=int, default=None)
     return parser.parse_args(argv)
 
 
@@ -1115,22 +1209,42 @@ def main(argv=None) -> int:
                 file=sys.stderr,
             )
             return 2
+    if args.student_quantize and not args.student_weights:
+        # Pure flag validation — fail before any engine is built.
+        print("--student-quantize needs --student-weights (there is no student to quantize)", file=sys.stderr)
+        return 2
+    if args.downgrade_watermark is not None and not args.student_weights:
+        print(
+            "--downgrade-watermark needs --student-weights: brown-out downgrades route saturated "
+            "quality traffic to the fast tier, and without a student there is no fast tier",
+            file=sys.stderr,
+        )
+        return 2
     faults.install_from_env()  # WATERNET_FAULTS serving-side fault kinds
 
     import torch
 
-    from waternet_tpu_torch.inference_engine import InferenceEngine
+    from waternet_tpu_torch.inference_engine import InferenceEngine, StudentEngine
 
+    dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     engine = InferenceEngine(
         weights=args.weights,
         device_preprocess=args.device_preprocess,
         device=args.device,
-        dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
+        dtype=dtype,
     )
+    fast_engine = None
+    if args.student_weights:
+        fast_engine = StudentEngine(
+            weights=args.student_weights, dtype=dtype,
+            quantize=args.student_quantize, device=args.device,
+        )
     ladder = resolve_ladder(args.serve_buckets)
     server = ServingServer(
         engine,
         ladder,
+        fast_engine=fast_engine,
+        downgrade_watermark=args.downgrade_watermark,
         host=args.host,
         port=args.port,
         max_batch=args.max_batch,

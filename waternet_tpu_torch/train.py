@@ -54,6 +54,12 @@ writes a ``torch.profiler`` Chrome trace of the first warm epoch;
 reads no JAX Orbax state: JAX state crosses over through
 ``utils/convert.py::train_state_from_jax``.
 
+``--distill`` trains the fast tier's CAN student (``--student-width``,
+``--student-depth``) against the frozen WaterNet teacher of
+``--teacher-weights``: the teacher runs in the step on the WB/GC/CLAHE
+planes, its output replaces the reference in every loss and metric, and
+``last.npz`` is the student (what ``--student-weights`` serves).
+
 Runs on CUDA unless ``--device cpu`` is given.
 """
 
@@ -139,6 +145,17 @@ def parse_args(argv=None):
                    "--epochs 1) into DIR.")
     p.add_argument("--debug-nans", action="store_true",
                    help="Raise at the first operation whose output holds a NaN, naming it (slow; for debugging).")
+    p.add_argument("--distill", action="store_true",
+                   help="Distill the full quality pipeline into a compact CAN student (the fast serving tier): the "
+                   "trained model becomes models/can.CANStudent mapping raw RGB directly to the frozen WaterNet "
+                   "teacher's output; every loss and metric (the val ssim/psnr columns too) reads as "
+                   "student-against-teacher fidelity. --weights still names the TRAINED model's starting weights.")
+    p.add_argument("--teacher-weights",
+                   help="Frozen teacher checkpoint for --distill (.npz or the reference's .pt); defaults to the "
+                   "standard weight resolution (WATERNET_TPU_WEIGHTS, ./weights).")
+    p.add_argument("--student-width", type=int, default=24, help="--distill: CAN student channel width (default 24).")
+    p.add_argument("--student-depth", type=int, default=7,
+                   help="--distill: CAN student 3x3 stage count (default 7; dilations 1,2,...,2^(depth-2),1).")
     p.add_argument("--tensorboard", action="store_true",
                    help="Not ported yet (ROADMAP Queue A item 9): exits 2.")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'.")
@@ -156,6 +173,11 @@ def parse_args(argv=None):
         p.error("--cache-codec requires --device-cache")
     if args.device_cache and args.host_preprocess:
         p.error("--device-cache requires device preprocessing")
+    if args.distill and args.precache_vgg_ref:
+        p.error("--precache-vgg-ref is incompatible with --distill (the distillation target is the teacher "
+                "output, not the ground-truth ref the feature table is built from)")
+    if args.teacher_weights and not args.distill:
+        p.error("--teacher-weights needs --distill")
     if args.precache_vgg_ref and not (args.device_cache or args.cache_report):
         # An ignored A/B flag must fail loudly, not measure the wrong path;
         # cache_dataset refuses the other combinations.
@@ -242,6 +264,9 @@ def main(argv=None) -> int:
         precache_histeq=not args.no_precache_histeq,
         precache_vgg_ref=args.precache_vgg_ref,
         cache_codec=args.cache_codec,
+        distill=args.distill,
+        student_width=args.student_width,
+        student_depth=args.student_depth,
     )
     if args.synthetic:
         dataset = SyntheticPairs(args.synthetic, args.height, args.width, seed=args.seed)
@@ -273,7 +298,18 @@ def main(argv=None) -> int:
 
         params = resolve_weights(args.weights)
     vgg_params = None if args.no_perceptual else resolve_vgg_params(args.vgg_weights)
-    engine = TrainingEngine(config, params=params, vgg_params=vgg_params, device=dev)
+    teacher_params = None
+    if args.distill:
+        from waternet_tpu_torch.hub import resolve_weights
+
+        teacher_params = resolve_weights(args.teacher_weights)
+        if teacher_params is None:
+            raise SystemExit(
+                "--distill needs frozen teacher weights: pass --teacher-weights, set "
+                "WATERNET_TPU_WEIGHTS, or place the teacher checkpoint in ./weights"
+            )
+    engine = TrainingEngine(config, params=params, vgg_params=vgg_params, device=dev,
+                            teacher_params=teacher_params)
 
     saved_train = {k: [] for k in TRAIN_METRICS_NAMES}
     saved_val = {k: [] for k in VAL_METRICS_NAMES}
@@ -492,6 +528,9 @@ def main(argv=None) -> int:
         "precache_histeq": config.precache_histeq,
         "precache_vgg_ref": config.precache_vgg_ref,
         "cache_resident_bytes": engine.cache_resident_bytes(),
+        "distill": config.distill,
+        "student_width": config.student_width if config.distill else None,
+        "student_depth": config.student_depth if config.distill else None,
     }, indent=4))
     print(f"Metrics and weights saved to {savedir}")
     print(f"Total time: {time.perf_counter() - start_ts}s")

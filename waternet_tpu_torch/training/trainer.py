@@ -63,8 +63,17 @@ restore` save and load the full train state (parameters, Adam moments,
 the schedule's position, the step) in the format of
 :func:`~waternet_tpu_torch.utils.checkpoint.save_state_atomic`.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item rather than being ignored): spatial sharding and distillation.
+Distillation (``distill=True``, the fast tier): the TRAINED model is a
+CAN student (``models/can.py``, ``student_width`` x ``student_depth``)
+mapping raw RGB to the output of a frozen WaterNet teacher
+(``teacher_params``), which runs in the step under ``no_grad`` on the
+WB/GC/CLAHE planes the step makes anyway; the teacher's output replaces
+the reference in every loss and metric, so val ssim/psnr read as
+student-against-teacher fidelity. Everything else (the feeds, the
+caches, resume) is the same machinery.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item
+rather than being ignored): spatial sharding.
 """
 
 from __future__ import annotations
@@ -91,7 +100,8 @@ from waternet_tpu_torch.data.augment import (
 )
 from waternet_tpu_torch.data.batching import epoch_permutation
 from waternet_tpu_torch.data.pipeline import OrderedPipeline, PipelineStats
-from waternet_tpu_torch.models import WaterNet, waternet_forward_flops
+from waternet_tpu_torch.models import CANStudent, WaterNet, waternet_forward_flops
+from waternet_tpu_torch.models.can import train_flops_per_image
 from waternet_tpu_torch.models.vgg import VGG19Features, imagenet_normalize, init_vgg_params
 from waternet_tpu_torch.obs import device as obsdevice
 from waternet_tpu_torch.obs import trace
@@ -231,6 +241,10 @@ class TrainConfig:
     # (the reference branch carries no gradient). Requires precache_histeq,
     # device preprocessing and the perceptual term.
     precache_vgg_ref: bool = False
+    # Distill the whole quality pipeline into a CAN student: the trained
+    # model becomes the student; a frozen WaterNet teacher runs in the
+    # step on the WB/GC/CLAHE planes the step makes anyway, and its output
+    # replaces the reference in every loss and metric.
     distill: bool = False
     student_width: int = 24
     student_depth: int = 7
@@ -241,7 +255,6 @@ class TrainConfig:
         does not have yet, naming its ROADMAP item."""
         missing = {
             "spatial_shards > 1": (self.spatial_shards > 1, "Queue A item 8 (multi-GPU)"),
-            "distill": (self.distill, "Queue A item 7 (fast tier)"),
         }
         for name, (on, item) in missing.items():
             if on:
@@ -309,6 +322,12 @@ def transform_tables(raw_u8: torch.Tensor, n_var: int, chunk: int):
     return wb, gc, he
 
 
+def _student_params(params) -> dict:
+    from waternet_tpu_torch.models.can import student_state_dict
+
+    return {k: torch.as_tensor(v) for k, v in student_state_dict(params).items()}
+
+
 def _waternet_state_dict(params) -> dict:
     if "cmg.conv1.weight" in params:
         return {k: torch.as_tensor(v) for k, v in params.items()}
@@ -328,22 +347,40 @@ class TrainingEngine:
         params: Optional[dict] = None,
         vgg_params: Optional[dict] = None,
         device="cuda",
+        teacher_params: Optional[dict] = None,
     ):
-        """``params``: WaterNet weights as the JAX tree (nested or flat
-        keys; converted) or as a port state_dict; None draws the port's own
-        init under ``torch.manual_seed(config.seed)``. ``vgg_params``
+        """``params``: the trained model's weights as the JAX tree (nested or
+        flat keys; converted) or as a port state_dict; None draws the port's
+        own init under ``torch.manual_seed(config.seed)``. ``vgg_params``
         likewise (JAX tree or ``features.*`` state_dict); None with the
-        perceptual term on takes the deterministic random init."""
+        perceptual term on takes the deterministic random init. With
+        ``config.distill`` the trained model is the CAN student and
+        ``teacher_params`` (WaterNet weights, required) the frozen teacher."""
         config.check_ported()
         self.config = config
         self.device = resolve_device(device)
+        if config.distill:
+            if teacher_params is None:
+                raise ValueError(
+                    "distillation needs frozen teacher weights: pass teacher_params "
+                    "(CLI: --teacher-weights, or the standard weight resolution)"
+                )
+            # The TRAINED model is the student; the teacher is a frozen
+            # constant of the loss, never part of the optimizer state.
+            build = lambda: CANStudent(config.student_width, config.student_depth)  # noqa: E731
+            to_sd = _student_params
+            self.teacher = WaterNet()
+            self.teacher.load_state_dict(_waternet_state_dict(teacher_params), strict=True)
+            self.teacher.to(self.device).eval().requires_grad_(False)
+        else:
+            build, to_sd, self.teacher = WaterNet, _waternet_state_dict, None
         if params is None:
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(config.seed)
-                sd = WaterNet().state_dict()
+                sd = build().state_dict()
         else:
-            sd = _waternet_state_dict(params)
-        self.model = WaterNet()
+            sd = to_sd(params)
+        self.model = build()
         self.model.load_state_dict(sd, strict=True)
         self.model.to(self.device).train()
 
@@ -360,9 +397,15 @@ class TrainingEngine:
         # rewind it (replays count again), as in the JAX package.
         self._host_step = 0
         # Windowed perf instruments, fed from host clocks (see TrainPerf):
-        # WaterNet forward and backward, 3x the forward's FLOPs, per image.
+        # the trained network's forward and backward, 3x its forward's
+        # FLOPs, per image (plus the teacher's forward under distillation).
+        h, w = config.im_height, config.im_width
+        if config.distill:
+            flops = train_flops_per_image(h, w, config.student_width, config.student_depth, distill=True)
+        else:
+            flops = 3 * waternet_forward_flops(h, w)
         self.perf = TrainPerf(
-            flops_per_image=3 * waternet_forward_flops(config.im_height, config.im_width),
+            flops_per_image=flops,
             peak_tflops=obsdevice.peak_tflops(self.device, config.precision),
         )
         self._feeder = DeviceFeeder(self.device)
@@ -380,12 +423,24 @@ class TrainingEngine:
         return torch.autocast(self.device.type, dtype=torch.bfloat16)
 
     def _losses_and_out(self, x, wbn, hen, gcn, refn, mask, stamp=_no_stamp, ref_feats=None):
-        with self._autocast():
-            out = self.model(x, wbn, hen, gcn)
+        aux = {}
+        if self.teacher is not None:
+            # Frozen teacher: the full quality pipeline's output (the
+            # batch's WB/GC/CLAHE planes are its variant inputs) replaces
+            # the reference in every loss AND metric.
+            with torch.no_grad(), self._autocast():
+                refn = self.teacher(x, wbn, hen, gcn).to(torch.float32)
+            ref_feats = None  # precached vgg(ref) features target the wrong image
+            aux["target"] = refn
+            with self._autocast():
+                out = self.model(x)
+        else:
+            with self._autocast():
+                out = self.model(x, wbn, hen, gcn)
         out = out.to(torch.float32)
         stamp("forward")
         mse = mse_255(out, refn, mask)
-        aux = {"mse": mse, "perceptual_loss": torch.zeros((), device=self.device)}
+        aux.update(mse=mse, perceptual_loss=torch.zeros((), device=self.device))
         loss = mse
         if self.config.perceptual_weight != 0.0:
             with self._autocast():
@@ -397,6 +452,7 @@ class TrainingEngine:
 
     @torch.no_grad()
     def _metrics(self, out, refn, aux, mask, loss=None) -> dict:
+        refn = aux.get("target", refn)  # distillation: student against teacher
         m = {
             "mse": aux["mse"].detach(),
             "ssim": ssim_fn(out, refn, mask=mask),
@@ -487,6 +543,13 @@ class TrainingEngine:
         cfg = self.config
         if cfg.host_preprocess:
             raise ValueError("the device cache requires device preprocessing (host_preprocess=False)")
+        if cfg.precache_vgg_ref and cfg.distill:
+            # The table holds vgg(ground-truth ref); the distillation target
+            # is the teacher's output, whose features the step must compute.
+            raise ValueError(
+                "precache_vgg_ref is incompatible with distill: the distillation target is "
+                "the teacher output, not the ground-truth ref the table was built from"
+            )
         if cfg.precache_vgg_ref:
             if cfg.cache_codec != "raw":
                 # Built over decoded pixels, the table would outgrow the raw

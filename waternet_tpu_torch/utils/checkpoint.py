@@ -72,15 +72,18 @@ def flatten(tree: dict, prefix: str = "") -> dict:
 
 def save_weights(state_dict: dict, path) -> Path:
     """Save a WaterNet state_dict as the JAX package's flat npz (HWIO
-    kernels under ``params/{module}/Conv_i``), atomically: a temp file in
+    kernels under ``params/{module}/Conv_i``), or a CAN student's
+    (``layers.*`` keys) under ``params/Conv_i``, atomically: a temp file in
     the same directory, then ``os.replace``."""
-    from waternet_tpu_torch.utils.convert import jax_from_state_dict
+    from waternet_tpu_torch.utils.convert import jax_from_can_state_dict, jax_from_state_dict
+
+    to_jax = jax_from_can_state_dict if "layers.0.weight" in state_dict else jax_from_state_dict
 
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.parent / f".{path.name}.tmp.npz"
     try:
-        np.savez(tmp, **flatten(jax_from_state_dict(state_dict)))
+        np.savez(tmp, **flatten(to_jax(state_dict)))
         os.replace(tmp, path)
     finally:
         tmp.unlink(missing_ok=True)

@@ -4,7 +4,9 @@ WaterNet: the JAX tree is ``{"params": {module: {"Conv_i": {"kernel",
 "bias"}}}}`` with HWIO kernels; the port's (and the reference's) state_dict
 keys are ``{module}.conv{i+1}.{weight,bias}`` with OIHW weights. VGG19: the
 JAX tree is ``{"params": {"Conv_i": ...}}``, the port's keys torchvision's
-``features.{idx}.{weight,bias}``. Pure relayout: no value changes, so the
+``features.{idx}.{weight,bias}``. The CAN student: the JAX tree is
+``{"params": {"Conv_i": ...}}`` (the dilated stages, then the 1x1 head),
+the port's keys ``layers.{i}.{weight,bias}``. Pure relayout: no value changes, so the
 round trips are exact.
 """
 
@@ -57,6 +59,61 @@ def jax_from_state_dict(sd: dict) -> dict:
                 "bias": b.copy(),
             }
     return {"params": tree}
+
+
+def is_can_tree(params: dict) -> bool:
+    """True for a CAN student's JAX tree (nested or flat keys): every conv
+    directly under ``params`` as ``Conv_i``, with a 3-channel input first
+    layer (VGG19's trees share the naming, not the 3-channel 1x1 head)."""
+    tree = _nested(params)
+    if not tree or any(not k.startswith("Conv_") for k in tree):
+        return False
+    last = tree[f"Conv_{len(tree) - 1}"].get("kernel")
+    return last is not None and tuple(np.shape(last))[:2] == (1, 1) and np.shape(last)[-1] == 3
+
+
+def can_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX CAN student params (``params/Conv_i/{kernel,bias}``, HWIO; nested
+    or flat keys) -> the port's ``CANStudent`` state_dict (OIHW)."""
+    tree = _nested(params)
+    sd = {}
+    for i in range(len(tree)):
+        conv = tree[f"Conv_{i}"]
+        kernel = np.asarray(conv["kernel"], dtype=np.float32)
+        sd[f"layers.{i}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+        sd[f"layers.{i}.bias"] = torch.from_numpy(np.asarray(conv["bias"], dtype=np.float32).copy())
+    return sd
+
+
+def jax_from_can_state_dict(sd: dict) -> dict:
+    """``CANStudent`` state_dict -> the JAX package's nested param tree."""
+    n = len({k.split(".")[1] for k in sd if k.startswith("layers.")})
+    tree = {}
+    for i in range(n):
+        w = sd[f"layers.{i}.weight"].detach().cpu().numpy()
+        tree[f"Conv_{i}"] = {
+            "kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+            "bias": sd[f"layers.{i}.bias"].detach().cpu().numpy().copy(),
+        }
+    return {"params": tree}
+
+
+def qtree_from_jax(qtree: dict) -> dict:
+    """A JAX int8 qtree (``models/quant.py``'s ``{branch: [{wq, bias, s_in,
+    rescale}]}``, HWIO ``wq``; numpy or jax arrays) -> the port's (OIHW
+    int8 ``wq``, float32 tensors). Pure relayout."""
+    return {
+        branch: [
+            {
+                "wq": torch.from_numpy(np.ascontiguousarray(np.asarray(q["wq"], np.int8).transpose(3, 2, 0, 1))),
+                "bias": torch.from_numpy(np.asarray(q["bias"], np.float32).copy()),
+                "s_in": torch.tensor(np.float32(q["s_in"])),
+                "rescale": torch.from_numpy(np.asarray(q["rescale"], np.float32).copy()),
+            }
+            for q in layers
+        ]
+        for branch, layers in qtree.items()
+    }
 
 
 def vgg_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
