@@ -16,7 +16,9 @@ Phases; any failure exits non-zero, and nothing below is caught:
    1-byte loads), and the L planes of T1's and T2's first train batch as
    their steps make them (8 x 256x256 from the dct8 cache, 32x32 tiles,
    16-byte loads; 16 x 112x112 from the raw cache, 14x14 tiles, 2-byte
-   loads), with each tile kernel's launch plan (cluster size K, vector
+   loads), and the L planes of the oversize frames S2 and St(b) send
+   (1 x 1094x1455 each, 8 px a side past phase 12's largest bucket: the
+   native fallback's input), with each tile kernel's launch plan (cluster size K, vector
    width), their times, the plain versions' times, the one-call PyTorch
    yardstick where there is one, and their bounds; ``tile_lut`` also
    under every K in {1, 2, 4, 8} at the first two shapes, bit for bit,
@@ -27,7 +29,7 @@ Phases; any failure exits non-zero, and nothing below is caught:
    and at the inference shape its time on a constant and on a uniform
    random plane (what the shared-memory gathers' bank conflicts cost);
 4. CLAHE through the kernels against the plain CLAHE, bit for bit, at
-   the same five shapes;
+   the same seven planes;
 5. the inference path, ``InferenceEngine(device_preprocess=True)`` on
    CUDA with the committed trained weights, answering R1 (4 x 1080x1920,
    batched 1080p video frames), R2 (1 x 723x1001) and R3 (2 x 251x333),
@@ -171,7 +173,10 @@ Phases; any failure exits non-zero, and nothing below is caught:
    device_preprocess=True)`` at R3 with the CPU port's qtree, every one of
    the 17 convolutions' int32 accumulators equal to the CPU port's on the
    same inputs (the int8 model's ``acc_hook``), the answers within one level
-   of the CPU port's int8 engine, one launch of each CLAHE kernel; the
+   of the CPU port's int8 engine, one launch of each CLAHE kernel; F2b: both
+   int8 engines calibrated on the card (not given the CPU port's qtree):
+   each conv's input scale's relative gap from the CPU port's, and the
+   answers' level gap at R3 (printed, not held to a bound); the
    int8 quality and student engines at R1 (time, peak memory, the widest
    layer's im2col band). F3: ``python -m waternet_tpu_torch.train
    --distill --teacher-weights teacher.npz`` at 16 x 112x112 bf16 with
@@ -189,7 +194,31 @@ Phases; any failure exits non-zero, and nothing below is caught:
    artifacts and WaterNet's float one through ``save_artifact`` and
    ``load_artifact`` on the card, at R3 and R2, bit for bit the eager
    forward. F6: ``bench --config tiers`` and ``WATERNET_QUANT=1 bench
-   --config video`` (8 timed calls).
+   --config video`` (8 timed calls);
+14. St, stream sessions and the fleet. One ``ServingServer`` over
+   phase 12's ladder: the bf16 quality engine with device preprocessing,
+   the fixture student (bf16) as the fast tier. (a) 3 paced ``POST
+   /stream`` sessions of 24 frames (phase 12's population) at 4 frames/s
+   each, traced: every frame an ``F`` record in order, byte-equal to
+   ``enhance_padded``, ``compiles`` and ``cold_dispatches`` unchanged, no
+   kernel launch; (b) one oversize frame: one ``tile_lut`` and one
+   ``clahe_lut_blend`` (the native fallback), byte-equal to ``enhance``;
+   (e) a static clip with ``X-Stream-Reuse: 0``: one ``F`` then ``R``
+   records byte for byte the ``F``; (c) a ``stream_stall@1`` session
+   beside a healthy paced one, whose p99 stays within its 2 s budget, and
+   ``frame_corrupt@3``: one ``E`` record, at seq 2; (d) an opted-in
+   stream under a held quality backlog and downgrade watermark 1: every
+   frame ``FLAG_DOWNGRADED``, byte-equal to the student's
+   ``enhance_padded``. (f) 2 ``python -m waternet_tpu_torch.serving.
+   server`` workers on the card behind ``FleetRouter``, worker 0 with
+   ``gateway_crash@1``: each worker's spawn-to-first-serve-heartbeat
+   seconds and host RSS, the workers' device memory together (nvidia-smi's
+   used memory before and after); the first request fails over to
+   worker 1 with its ``X-Request-Id``; worker 0 comes back as generation
+   1; the same upload answered byte-identically by every live worker. (g)
+   ``python -m waternet_tpu_torch.obs.cli`` on (a)'s trace exits 0. (h)
+   ``bench --config stream`` and ``--config serve_fleet`` at a reduced
+   size, each accounted (the fleet's also byte-identical and recovered).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card line and
 the ``{"ok": true, "device": ...}`` result. Inputs are made with numpy
@@ -270,6 +299,9 @@ RESUME_R4 = dict(sigterm=20)
 # Phase 12 (S, serving): the population, its ladder, the slots a batch and
 # the load's concurrency; the S2 and S3 bounds.
 SERVE = dict(n=24, base=540, max_buckets=3, max_batch=4, concurrency=8)
+# The oversize frames' seeds: S2's and St(b)'s, each held in phases 3-4
+# and 6 at its own L plane.
+OVERSIZE_SEEDS = {"S2": SEED + 12, "St": SEED + 14}
 BF16_LEVELS = 3  # the bf16 engine's bound: within 3 levels, more than 1 on <= 1%
 FAULT_COUNTERS = ("requests", "retried", "nan_outputs", "quarantines", "reintegrations")
 # Phase 13 (F, the fast tier): the committed distilled student (24 x 5),
@@ -278,6 +310,13 @@ FAULT_COUNTERS = ("requests", "retried", "nan_outputs", "quarantines", "reintegr
 STUDENT = str(REPO / "tests" / "fixtures" / "distill" / "student.npz")
 FAST_ATOL = 2e-5
 FAST_DISTILL = dict(synthetic=64, val_size=8, batch=16, hw=112)
+STREAMS = dict(streams=3, frames=24, fps=4.0, budget_ms=2000.0, stall_sec=1.0, reuse_frames=6, corrupt_at=3)
+FLEET = dict(workers=2, requests=6, startup_grace_sec=300.0)
+STREAM_BENCH_ENV = {"WATERNET_BENCH_SERVE_IMAGES": "12", "WATERNET_BENCH_STREAMS": "2",
+                    "WATERNET_BENCH_STREAM_FRAMES": "6"}
+# Three workers, as the JAX bench: its crash and hang take two of them down
+# at once, and the third must answer meanwhile.
+FLEET_BENCH_ENV = {"WATERNET_BENCH_FLEET_IMAGES": "8", "WATERNET_BENCH_SERVE_REQUESTS": "16"}
 WATERNET_MAC_PER_PX = 1_089_824
 TRAIN_KEYS = ("mse", "ssim", "psnr", "perceptual_loss", "loss")
 VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -351,12 +390,27 @@ def kernel_line(name, tag, shape, r, card, **extra) -> None:
     print(json.dumps(line), flush=True)
 
 
+def oversize_frame(seed: int) -> np.ndarray:
+    """The frame S2 and St(b) send: 8 pixels a side larger than the
+    largest bucket of phase 12's ladder, so the batcher serves it at its
+    native shape through the CLAHE kernels."""
+    from waternet_tpu_torch.bench import _serving_population
+    from waternet_tpu_torch.serving import derive_buckets
+
+    _, shapes = _serving_population(SERVE["n"], SERVE["base"])
+    ladder = derive_buckets(shapes, max_buckets=SERVE["max_buckets"])
+    bh = max(b[0] for b in ladder) + 8
+    bw = max(b[1] for b in ladder) + 8
+    return np.random.default_rng(seed).integers(0, 256, (bh, bw, 3), dtype=np.uint8)
+
+
 def l_planes(torch, dev, rng) -> dict:
     """The (N, H, W) uint8 L planes the CLAHE kernels are held at: the
-    inference shapes, from photo frames, and the first batch of T1 and T2
+    inference shapes, from photo frames; the first batch of T1 and T2
     as their steps make it: ``SyntheticPairs(seed=SEED)`` cached under the
     run's codec, decoded on the card, augmented with the first step's
-    draws, converted to LAB."""
+    draws, converted to LAB; and the L planes of S2's and St(b)'s
+    oversize frames, the inputs their native fallback gives the kernels."""
     from waternet_tpu_torch.data import codec
     from waternet_tpu_torch.data.augment import augment_pair_batch
     from waternet_tpu_torch.data.synthetic import SyntheticPairs
@@ -374,6 +428,9 @@ def l_planes(torch, dev, rng) -> dict:
         payload = {k: torch.from_numpy(v).to(dev) for k, v in codec.encode(codec_name, raw).items()}
         rgb = codec.decode(codec_name, payload, hw, hw)
         rgb, _ = augment_pair_batch(step_generator(SEED, 0, 0), rgb, rgb)
+        planes[tag] = rgb_to_lab_u8(rgb)[..., 0].to(torch.uint8)
+    for tag, seed in (("oversize_S2", OVERSIZE_SEEDS["S2"]), ("oversize_St", OVERSIZE_SEEDS["St"])):
+        rgb = torch.from_numpy(oversize_frame(seed)[None]).to(dev)
         planes[tag] = rgb_to_lab_u8(rgb)[..., 0].to(torch.uint8)
     return planes
 
@@ -1007,7 +1064,13 @@ BENCH_METRIC = {(): "uieb_train_images_per_sec_per_chip",
                 ("--config", "video"): "video_1080p_frames_per_sec_per_chip",
                 ("--config", "serve"): "mixed_res_dir_images_per_sec",
                 ("--config", "serve_http"): "http_images_per_sec",
-                ("--config", "tiers"): "fast_tier_images_per_sec"}
+                ("--config", "tiers"): "fast_tier_images_per_sec",
+                ("--config", "serve_adaptive"): "adaptive_p50_ms",
+                ("--config", "serve_chaos"): "chaos_images_per_sec",
+                ("--config", "serve_fleet"): "fleet_images_per_sec",
+                ("--config", "stream"): "video_stream_fps",
+                ("--config", "stream_reuse"): "stream_reuse_fps",
+                ("--config", "obs"): "obs_overhead_pct"}
 
 
 def run_bench(card, *args, env=None) -> dict:
@@ -1701,9 +1764,7 @@ def run_serving(torch, dev, card) -> dict:
             check(torch.equal(m[0, :h, :w], n[0]), f"S2: masked {name} != transform_batch at {h}x{w}")
     print(json.dumps({"run": "S2 masked transforms", "shapes": [list(im.shape[:2]) for im in images[:4]],
                       "equal_to_transform_batch": True, "card": card}), flush=True)
-    bh = max(b[0] for b in ladder) + 8
-    bw = max(b[1] for b in ladder) + 8
-    oversize = np.random.default_rng(SEED + 12).integers(0, 256, (bh, bw, 3), dtype=np.uint8)
+    oversize = oversize_frame(OVERSIZE_SEEDS["S2"])
     s2, rep2, stats2, launches["serving_S2"], warmup2_s, spans2 = serve_over_http(
         engine2, ladder, images, [oversize])
     want = dict(NO_LAUNCH, tile_lut=1, clahe_lut_planes=1)
@@ -1883,6 +1944,7 @@ def run_fast_tier(torch, dev, card) -> dict:
                       "launches": launches["fast_F2_int8_request"], "card": card}), flush=True)
     check(len(accs_cpu) == 17 and not unequal, f"F2: accumulators differ at {unequal}")
     check(d.max() <= 1, f"F2: int8 answers differ from the CPU port's by {int(d.max())} levels")
+    calibrated_on_card(torch, dev, card, r3, cpu_q)
     del cpu_q
     widest = {"k": 128 * 5 * 5, "band_rows": quant.band_rows(*REQUESTS["R1"], 128 * 5 * 5),
               "budget_bytes": quant.IM2COL_BUDGET_BYTES}
@@ -1965,6 +2027,52 @@ def run_fast_tier(torch, dev, card) -> dict:
     return launches
 
 
+
+def calibrated_on_card(torch, dev, card, r3, cpu_q) -> None:
+    """F2b: ``InferenceEngine(quantize=True)`` and ``StudentEngine(quantize=
+    True)`` calibrated on the card, against the CPU port's qtrees: each
+    conv's input scale's relative gap, and the answers' level gap at R3.
+    A measurement: its numbers are printed, and no bound is held here."""
+    from waternet_tpu_torch.inference_engine import InferenceEngine, StudentEngine
+    from waternet_tpu_torch.models import quant
+
+    def scale_gaps(card_tree, cpu_tree):
+        return {f"{branch}/{i}": abs(float(a["s_in"]) - float(b["s_in"])) / float(b["s_in"])
+                for branch in cpu_tree for i, (a, b) in enumerate(zip(card_tree[branch], cpu_tree[branch]))}
+
+    def level_gap(a, b):
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        return {"max_abs_diff": int(d.max()), "share_differing": float((d > 0).mean()),
+                "share_over_1": float((d > 1).mean())}
+
+    engines = {"quality": (InferenceEngine(weights=WEIGHTS, device_preprocess=True, device=dev, quantize=True), cpu_q),
+               "student": (StudentEngine(weights=STUDENT, quantize=True, device=dev),
+                           StudentEngine(weights=STUDENT, quantize=True, device="cpu"))}
+    for name, (on_card, on_cpu) in engines.items():
+        gaps = scale_gaps(on_card.params, on_cpu.params)
+        worst = max(gaps, key=gaps.get)
+        line = {"run": f"F2b int8 {name} calibrated on the card", "convs": len(gaps),
+                "scales_equal": sum(g == 0.0 for g in gaps.values()), "max_rel_scale_gap": gaps[worst],
+                "worst_layer": worst, "rel_scale_gap": gaps,
+                "answers_vs_cpu_port_R3": level_gap(on_card.enhance(r3), on_cpu.enhance(r3)), "card": card}
+        print(json.dumps(line), flush=True)
+        check(all(math.isfinite(g) for g in gaps.values()), f"F2b {name}: scale gaps {gaps}")
+    # What the card's int8 student path moves by itself: the CPU port's
+    # qtree on the card, its int32 accumulators on the same float input.
+    stu_cpu = engines["student"][1]
+    same = StudentEngine(weights=STUDENT, quantize=True, device=dev)
+    same.params, same.model = stu_cpu.params, same._build(stu_cpu.params, dev)
+    x = torch.from_numpy(r3).to(torch.float32) / 255.0
+    accs_card, accs_cpu = {}, {}
+    quant.QuantCAN(stu_cpu.params, dev, acc_hook=lambda n, a: accs_card.__setitem__(n, a.cpu()))(x.to(dev))
+    quant.QuantCAN(stu_cpu.params, "cpu", acc_hook=accs_cpu.__setitem__)(x)
+    print(json.dumps({"run": "F2b int8 student with the CPU port's qtree on the card", "convs": len(accs_cpu),
+                      "accumulators_unequal": sorted(n for n in accs_cpu if not torch.equal(accs_card[n], accs_cpu[n])),
+                      "answers_vs_cpu_port_R3": level_gap(same.enhance(r3), stu_cpu.enhance(r3)), "card": card}),
+          flush=True)
+    del engines, same
+    torch.cuda.empty_cache()
+
 def run_two_tier(torch, dev, card) -> dict:
     """F4: a two-tier ``ServingServer`` (the teacher fp32 with host
     preprocessing, the fixture student fp32) on phase 12's population;
@@ -2040,6 +2148,371 @@ def run_two_tier(torch, dev, card) -> dict:
     }), flush=True)
     return {"fast_F4_serving": launches}
 
+
+def open_stream(port: int, headers: dict, timeout: float = 120.0):
+    """``POST /stream`` on a raw socket -> (socket, reader, status, head)."""
+    import socket
+
+    sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    lines = ["POST /stream HTTP/1.1", f"Host: 127.0.0.1:{port}"] + [f"{k}: {v}" for k, v in headers.items()]
+    sock.sendall(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
+    f = sock.makefile("rb")
+    status = int(f.readline().split()[1])
+    head = {}
+    while True:
+        line = f.readline()
+        if not line or line in (b"\r\n", b"\n"):
+            break
+        k, _, v = line.decode("latin-1").partition(":")
+        head[k.strip().lower()] = v.strip()
+    return sock, f, status, head
+
+
+def send_frames(sock, payloads, gap_s: float = 0.0) -> None:
+    """Each payload as one length-prefixed frame, then the clean end."""
+    from waternet_tpu_torch.serving.streams import FRAME_LEN
+
+    for p in payloads:
+        sock.sendall(FRAME_LEN.pack(len(p)) + p)
+        if gap_s:
+            time.sleep(gap_s)
+    sock.sendall(FRAME_LEN.pack(0))
+
+
+def read_records(f) -> list:
+    """Every record of a session up to its ``Z`` summary: (kind, flags,
+    seq, payload)."""
+    from waternet_tpu_torch.serving.streams import KIND_END, REC_HEAD
+
+    recs = []
+    while True:
+        head = f.read(REC_HEAD.size)
+        if len(head) < REC_HEAD.size:
+            break
+        kind, flags, seq, n = REC_HEAD.unpack(head)
+        recs.append((kind, flags, seq, f.read(n) if n else b""))
+        if kind == KIND_END:
+            break
+    return recs
+
+
+def stream_session(port: int, payloads, headers: dict, gap_s: float = 0.0) -> tuple:
+    """One whole stream session -> (status, head, records)."""
+    sock, f, status, head = open_stream(port, headers)
+    try:
+        if status == 200:
+            send_frames(sock, payloads, gap_s)
+            return status, head, read_records(f)
+        return status, head, []
+    finally:
+        sock.close()
+
+
+def run_streams(torch, dev, card) -> dict:
+    """Phase 14 (St), its stream half: one ``ServingServer`` (the bf16
+    quality engine with device preprocessing, the fixture student bf16 as
+    the fast tier, phase 12's ladder) answering stream sessions. Returns
+    the launches of the bucketed streams and of the oversize frame, and
+    the path of the trace it wrote."""
+    import os
+
+    from waternet_tpu_torch.bench import _serving_population
+    from waternet_tpu_torch.inference_engine import InferenceEngine, StudentEngine
+    from waternet_tpu_torch.obs import trace
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.resilience import faults
+    from waternet_tpu_torch.serving import derive_buckets
+    from waternet_tpu_torch.serving.loadgen import run_stream_load
+    from waternet_tpu_torch.serving.server import ServingServer
+    from waternet_tpu_torch.serving.streams import FLAG_DOWNGRADED, FLAG_REUSED, FRAME_LEN
+
+    st = STREAMS
+    images, shapes = _serving_population(SERVE["n"], SERVE["base"])
+    ladder = derive_buckets(shapes, max_buckets=SERVE["max_buckets"])
+    slots = SERVE["max_batch"]
+    quality = InferenceEngine(weights=WEIGHTS, device_preprocess=True, device=dev, dtype=torch.bfloat16)
+    fast = StudentEngine(weights=STUDENT, device=dev, dtype=torch.bfloat16)
+    pngs = [_png(im) for im in images]
+    server = ServingServer(quality, ladder, max_batch=slots, max_wait_ms=5.0, replicas=1, max_queue=256,
+                           fast_engine=fast, max_streams=8, stream_window=8)
+    launches, out = {}, {}
+    t0 = time.perf_counter()
+    server.start_background(timeout=60)
+    try:
+        server.wait_ready(timeout=300)
+        out["warmup_sec"] = time.perf_counter() - t0
+        port = server.bound_port
+        cold0 = quality.cold_dispatches + fast.cold_dispatches
+        compiles0 = server.stats.summary()["compiles"]
+        want_q = [quality.enhance_padded([im], ladder.bucket_for(*im.shape[:2]), n_slots=slots)[0, :im.shape[0],
+                                                                                               :im.shape[1]]
+                  for im in images]
+
+        # (a) Delivery and exactness: 3 paced streams of 24 frames, traced.
+        kernels.reset_launches()
+        trace.reset()
+        trace.enable()
+        try:
+            rep = run_stream_load(server.url, pngs, streams=st["streams"], frames=st["frames"], fps=st["fps"],
+                                  budget_ms=60_000.0, window=st["frames"], keep_frames=True)
+        finally:
+            trace.disable()
+        torch.cuda.synchronize()
+        launches["streams_St_bucketed"] = dict(kernels.LAUNCHES)
+        trace_path = Path(tempfile.mkdtemp(prefix="chip-smoke-trace-")) / "streams.json"
+        trace.export(str(trace_path))
+        n = st["streams"] * st["frames"]
+        check(rep["ok"] == n and rep["frames_sent"] == n and rep["errors"] == 0 and rep["conn_reset"] == 0,
+              f"St(a): stream report {({k: rep[k] for k in ('ok', 'dropped', 'out_of_budget', 'errors')})}")
+        for si, recs in rep["frames"].items():
+            check([r[0] for r in recs] == list(range(st["frames"])), f"St(a): stream {si} out of order")
+            for seq, kind, body in recs:
+                check(kind == "F" and np.array_equal(_unpng(body), want_q[seq % len(images)]),
+                      f"St(a): stream {si} frame {seq} differs from enhance_padded")
+        check(launches["streams_St_bucketed"] == NO_LAUNCH, f"St(b): bucketed launches {launches}")
+        s_a = server.stats.summary()
+        check(s_a["compiles"] == compiles0 and s_a["fallback_native_shapes"] == 0
+              and quality.cold_dispatches + fast.cold_dispatches == cold0 == 0,
+              f"St(a): compiles {compiles0} -> {s_a['compiles']}, cold {cold0}")
+        out["a"] = {"frames": n, "fps_per_stream": rep["fps_per_stream"], "offered_fps": st["fps"],
+                    "frame_latency_ms": rep["frame_latency_ms"], "equal_to_enhance_padded": True,
+                    "in_order": True}
+
+        # (b) One oversize frame: the native fallback launches each CLAHE kernel once.
+        oversize = oversize_frame(OVERSIZE_SEEDS["St"])
+        bh, bw = oversize.shape[:2]
+        kernels.reset_launches()
+        status, _, recs = stream_session(port, [_png(oversize)], {"X-Stream-Budget-Ms": "60000"})
+        torch.cuda.synchronize()
+        launches["streams_St_oversize"] = dict(kernels.LAUNCHES)
+        check(status == 200 and [r[0] for r in recs] == [b"F", b"Z"], f"St(b): oversize records {[r[:3] for r in recs]}")
+        check(np.array_equal(_unpng(recs[0][3]), quality.enhance(oversize[None])[0]),
+              "St(b): the oversize frame differs from enhance at its native shape")
+        check(launches["streams_St_oversize"] == CLAHE_ONLY, f"St(b): oversize launches {launches}")
+        out["b"] = {"oversize": [bh, bw], "launches": launches["streams_St_oversize"],
+                    "bucketed_launches": launches["streams_St_bucketed"]}
+
+        # (e) Reuse: a static clip at delta 0 -> R records, byte for byte the recompute.
+        k = st["reuse_frames"]
+        status, _, recs = stream_session(port, [pngs[0]] * k, {"X-Stream-Budget-Ms": "60000", "X-Stream-Reuse": "0"})
+        kinds = [r[0] for r in recs[:-1]]
+        check(status == 200 and kinds == [b"F"] + [b"R"] * (k - 1), f"St(e): records {kinds}")
+        check(all(r[1] == FLAG_REUSED and r[3] == recs[0][3] for r in recs[1:-1]), "St(e): an R record differs")
+        check(np.array_equal(_unpng(recs[0][3]), want_q[0]), "St(e): the anchor differs from enhance_padded")
+        out["e"] = {"frames": k, "reused": k - 1, "byte_identical": True}
+
+        # (c) Isolation: a stalled session beside a healthy paced one; then frame_corrupt@K.
+        os.environ["WATERNET_FAULT_STALL_SEC"] = str(st["stall_sec"])
+        faults.install(faults.FaultPlan.parse("stream_stall@1"))
+        try:
+            sock, f, status, _ = open_stream(port, {"X-Stream-Window": "2", "X-Stream-Budget-Ms": "60000"})
+            check(status == 200, f"St(c): stalled session status {status}")
+            for p in pngs[:6]:
+                sock.sendall(FRAME_LEN.pack(len(p)) + p)
+            healthy = run_stream_load(server.url, pngs[:6], streams=1, frames=6, fps=st["fps"],
+                                      budget_ms=st["budget_ms"], window=8)
+            sock.sendall(FRAME_LEN.pack(0))
+            stalled = read_records(f)
+            sock.close()
+        finally:
+            faults.clear()
+            os.environ.pop("WATERNET_FAULT_STALL_SEC", None)
+        z = json.loads(stalled[-1][3])
+        check(healthy["ok"] == 6 and healthy["frame_latency_ms"]["p99"] <= st["budget_ms"],
+              f"St(c): the healthy stream {healthy['ok']} ok, p99 {healthy['frame_latency_ms']['p99']} ms")
+        check(z["delivered"] + z["dropped"] == 6 and z["errors"] == 0, f"St(c): the stalled session {z}")
+        kk = st["corrupt_at"]
+        faults.install(faults.FaultPlan.parse(f"frame_corrupt@{kk}"))
+        try:
+            status, _, recs = stream_session(port, pngs[:6], {"X-Stream-Budget-Ms": "60000"})
+        finally:
+            faults.clear()
+        kinds = [r[0] for r in recs[:-1]]
+        check(kinds == [b"E" if i == kk - 1 else b"F" for i in range(6)], f"St(c): frame_corrupt records {kinds}")
+        out["c"] = {"healthy_p99_ms": healthy["frame_latency_ms"]["p99"], "budget_ms": st["budget_ms"],
+                    "stalled_summary": z, "stall_sec": st["stall_sec"], "corrupt_at": kk,
+                    "error_seq": kk - 1}
+
+        # (d) Brown-out: quality backlog held above watermark 1; an opted-in stream's frames downgrade.
+        want_f = [fast.enhance_padded([im], ladder.bucket_for(*im.shape[:2]), n_slots=slots)[0, :im.shape[0], :im.shape[1]]
+                  for im in images[:4]]
+        server.batcher.downgrade_watermark = 1
+        held = [server.batcher.submit(im) for im in images]
+        status, _, recs = stream_session(port, pngs[:4], {"X-Tier": "quality", "X-Tier-Allow-Downgrade": "1",
+                                                           "X-Stream-Budget-Ms": "60000"})
+        still_held = sum(not h.done() for h in held)
+        for h in held:
+            h.result(timeout=300)
+        server.batcher.downgrade_watermark = server.downgrade_watermark
+        frames = recs[:-1]
+        check(status == 200 and [r[0] for r in frames] == [b"F"] * 4, f"St(d): records {[r[:3] for r in frames]}")
+        check(all(r[1] & FLAG_DOWNGRADED for r in frames), f"St(d): flags {[r[1] for r in frames]}")
+        for _, _, seq, body in frames:
+            check(np.array_equal(_unpng(body), want_f[seq]), f"St(d): downgraded frame {seq} differs from the student's")
+        out["d"] = {"frames": 4, "downgraded": 4, "held_still_queued_after": still_held,
+                    "equal_to_student_enhance_padded": True}
+
+        stats = server.stats.summary()
+        cold = quality.cold_dispatches + fast.cold_dispatches
+    finally:
+        server.request_drain()
+        code = server.join(timeout=300)
+    check(code == 0, f"St: the server's drain exited {code}")
+    # The oversize frame is the one native shape: one entry, met once.
+    check(stats["compiles"] == compiles0 + 1 and stats["fallback_native_shapes"] == 1,
+          f"St: compiles {compiles0} -> {stats['compiles']}, fallbacks {stats['fallback_native_shapes']}")
+    check(cold == cold0 == 0, f"St: cold dispatches {cold0} -> {cold}")
+    print(json.dumps({"run": "St streams", **out, "compiles": stats["compiles"], "cold_dispatches": cold,
+                      "streams_counters": stats["streams"], "trace": str(trace_path), "card": card}), flush=True)
+    return launches, trace_path
+
+
+def gpu_used_mib() -> int:
+    """The card's used device memory in MiB, as nvidia-smi reads it (its
+    per-process list need not name processes of a container's PID
+    namespace)."""
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits", "-i", "0"],
+                          capture_output=True, text=True, timeout=30)
+    return int(proc.stdout.split()[0])
+
+
+def rss_mib(pid: int):
+    try:
+        for line in Path(f"/proc/{pid}/status").read_text().splitlines():
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    except OSError:
+        return None
+    return None
+
+
+def run_fleet(torch, dev, card) -> dict:
+    """Phase 14 (St), its fleet half: ``FLEET["workers"]`` ``python -m
+    waternet_tpu_torch.serving.server`` processes on the card (bf16,
+    device preprocessing, phase 12's ladder) behind the fleet router, with
+    ``gateway_crash@1`` on worker 0. Returns the worker's start-up and
+    failover numbers."""
+    import http.client
+
+    from waternet_tpu_torch.bench import _serving_population
+    from waternet_tpu_torch.resilience.heartbeat import read_heartbeat
+    from waternet_tpu_torch.serving import derive_buckets
+    from waternet_tpu_torch.serving.fleet import FleetRouter, worker_id
+
+    fl = FLEET
+    images, shapes = _serving_population(SERVE["n"], SERVE["base"])
+    ladder = derive_buckets(shapes, max_buckets=SERVE["max_buckets"])
+    pngs = [_png(im) for im in images[:fl["requests"]]]
+    cmd = [sys.executable, "-m", "waternet_tpu_torch.serving.server", "--device", dev.type, "--weights", WEIGHTS,
+           "--precision", "bf16", "--device-preprocess", "--serve-buckets", ",".join(ladder.describe()),
+           "--max-batch", str(SERVE["max_batch"]), "--max-wait-ms", "5", "--serve-replicas", "1"]
+    hb_root = Path(tempfile.mkdtemp(prefix="chip-smoke-fleet-"))
+    router = FleetRouter(cmd, n_workers=fl["workers"], port=0, heartbeat_root=hb_root,
+                         worker_faults={(0, 0): "gateway_crash@1"}, startup_grace_sec=fl["startup_grace_sec"],
+                         heartbeat_sec=0.25, poll_sec=0.05, health_poll_sec=0.1, late_sec=5.0, hang_sec=30.0,
+                         drain_grace_sec=10.0, backoff_base_sec=0.1, backoff_cap_sec=0.5)
+
+    def request(body, rid):
+        conn = http.client.HTTPConnection("127.0.0.1", router.bound_port, timeout=300)
+        try:
+            t0 = time.perf_counter()
+            conn.request("POST", "/enhance", body=body, headers={"X-Request-Id": rid})
+            resp = conn.getresponse()
+            data = resp.read()
+            return resp.status, {k.lower(): v for k, v in resp.getheaders()}, data, time.perf_counter() - t0
+        finally:
+            conn.close()
+
+    def first_serve_beats(deadline_s):
+        """Seconds from each worker's spawn to its first serve-phase beat."""
+        seen, t_end = {}, time.monotonic() + deadline_s
+        while time.monotonic() < t_end:
+            with router._lock:
+                ws = list(router._workers.values())
+            for w in ws:
+                beat = read_heartbeat(w.hb_file)
+                if w.worker_id not in seen and beat is not None and beat.get("phase") == "serve":
+                    seen[w.worker_id] = {"startup_to_serve_beat_s": beat["time"] - w.health.started_at,
+                                         "pid": w.proc.pid}
+            if len(seen) >= len(ws) and ws and all(w.ready for w in ws):
+                return seen
+            time.sleep(0.05)
+        return seen
+
+    torch.cuda.empty_cache()
+    out = {"device_mib_before": gpu_used_mib()}
+    t0 = time.perf_counter()
+    router.start_background(timeout=60)
+    try:
+        beats = first_serve_beats(fl["startup_grace_sec"])
+        router.wait_ready(timeout=60)
+        out["fleet_ready_s"] = time.perf_counter() - t0
+        check(len(beats) == fl["workers"], f"St(f): serve-phase beats from {sorted(beats)}")
+        # The workers' device memory together: the card's use now, less before.
+        out["device_mib_workers"] = gpu_used_mib() - out["device_mib_before"]
+        for wid, b in beats.items():
+            b["rss_mib"] = rss_mib(b["pid"])
+        out["workers"] = beats
+        # The first request of an idle fleet goes to slot 0, whose plan
+        # SIGKILLs it on arrival: the router re-dispatches to slot 1.
+        status, head, body, failover_s = request(pngs[0], "chip-smoke-failover")
+        check(status == 200 and head.get("x-request-id") == "chip-smoke-failover"
+              and head.get("x-worker-id") == worker_id(1, 0),
+              f"St(f): failover answer {status} {head}")
+        deadline = time.monotonic() + fl["startup_grace_sec"]
+        while time.monotonic() < deadline:
+            s = router.summary()
+            if s["fleet"]["ready"] == fl["workers"] and worker_id(0, 1) in s["workers"]:
+                break
+            time.sleep(0.1)
+        s = router.summary()
+        check(worker_id(0, 1) in s["workers"] and s["fleet"]["restarts"] >= 1 and s["fleet"]["ready"] == fl["workers"],
+              f"St(f): no relaunch {s['fleet']}")
+        # Byte identity across the hop: the same payload from every live worker.
+        answers = {}
+        for i in range(4 * fl["workers"]):
+            st_, hd, bd, _ = request(pngs[0], f"chip-smoke-identity-{i}")
+            check(st_ == 200 and hd.get("x-worker-id"), f"St(f): identity request {st_} {hd}")
+            answers.setdefault(hd["x-worker-id"], bd)
+        check(all(bd == body for bd in answers.values()), f"St(f): answers differ across workers {sorted(answers)}")
+        for i, p in enumerate(pngs[1:]):
+            st_, hd, _, _ = request(p, f"chip-smoke-r{i}")
+            check(st_ == 200 and hd.get("x-request-id") == f"chip-smoke-r{i}" and hd.get("x-worker-id"),
+                  f"St(f): request {i}: {st_} {hd}")
+        out.update({"failover_request_s": failover_s, "recovery_sec": s["fleet"]["recovery_sec_max"],
+                    "redispatches": s["fleet"]["redispatches"], "restarts": s["fleet"]["restarts"],
+                    "answered_by": sorted(answers), "byte_identical_across_workers": True,
+                    "per_worker": s["fleet"]["per_worker"]})
+    finally:
+        router.request_drain()
+        rc = router.join(timeout=300)
+        shutil.rmtree(hb_root, ignore_errors=True)
+    out["drain_rc"] = rc
+    print(json.dumps({"run": "St fleet", **out, "card": card}), flush=True)
+    return out
+
+
+def run_streams_fleet(torch, dev, card) -> dict:
+    """Phase 14 (St): streams, the fleet, the trace CLI and the two benches."""
+    launches, trace_path = run_streams(torch, dev, card)
+    torch.cuda.empty_cache()
+    run_fleet(torch, dev, card)
+    # (g) The trace CLI on the trace (a) wrote.
+    proc = subprocess.run([sys.executable, "-m", "waternet_tpu_torch.obs.cli", str(trace_path)], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0 and "per-stage latency" in proc.stdout and "stream_frame" in proc.stdout,
+          f"St(g): trace CLI rc {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    print(json.dumps({"run": "St trace CLI", "rc": proc.returncode, "lines": proc.stdout.count("\n"),
+                      "card": card}), flush=True)
+    print(proc.stdout[:3000], flush=True)
+    shutil.rmtree(trace_path.parent, ignore_errors=True)
+    # (h) The bench's stream and fleet lines, at a reduced size.
+    line = run_bench(card, "--config", "stream", env=STREAM_BENCH_ENV)
+    check(line["accounted"] is True and line["cold_dispatches"] == 0, f"bench stream: {line}")
+    line = run_bench(card, "--config", "serve_fleet", env=FLEET_BENCH_ENV)
+    check(line["accounted"] is True and line["byte_identical"] is True and line["recovered"] is True,
+          f"bench serve_fleet: {line}")
+    return launches
 
 def main() -> int:
     import torch
@@ -2343,6 +2816,10 @@ def main() -> int:
     # 13. F: the fast tier.
     launches.update(run_fast_tier(torch, dev, card))
     lap("13 F fast tier")
+
+    # 14. St: stream sessions, the fleet, the trace CLI.
+    launches.update(run_streams_fleet(torch, dev, card))
+    lap("14 St streams, fleet")
     print(json.dumps({"phase_s": phase_s, "total_s": sum(phase_s.values())}), flush=True)
 
     kernels_line = []

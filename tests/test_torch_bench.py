@@ -127,10 +127,23 @@ def test_train_fullres_ends_in_its_contract_line():
 #: the metric of the line each prints instead of exiting 2.
 PORTED_SERVE = {"serve": "mixed_res_dir_images_per_sec", "serve_http": "http_images_per_sec",
                 "tiers": "fast_tier_images_per_sec"}
+#: The streams/fleet/observability configs, with the JAX bench's contract
+#: metric of each (JAX ``bench.py``'s metric table).
+PORTED_STREAMS = {"serve_adaptive": "adaptive_p50_ms", "serve_chaos": "chaos_images_per_sec",
+                  "serve_fleet": "fleet_images_per_sec", "stream": "video_stream_fps",
+                  "stream_reuse": "stream_reuse_fps", "obs": "obs_overhead_pct"}
 
 
-@pytest.mark.parametrize("config", sorted({*bench.UNPORTED, *PORTED_SERVE}))
+@pytest.mark.parametrize("config", sorted({*bench.UNPORTED, *PORTED_SERVE, *PORTED_STREAMS}))
 def test_unported_config_exits_2_naming_its_item(config, capsys, monkeypatch):
+    if config in PORTED_STREAMS:
+        # Ported: its line's metric is pinned without running it (all
+        # but ``serve_fleet`` run below at a tiny size).
+        import inspect
+
+        assert config not in bench.UNPORTED
+        assert f'"metric": "{PORTED_STREAMS[config]}"' in inspect.getsource(bench.SERVING_LINES[config])
+        return
     if config in PORTED_SERVE:
         # Ported: the config prints its line (at a smoke size) instead.
         for k, v in {"WATERNET_BENCH_HW": "16", "WATERNET_BENCH_SERVE_IMAGES": "3",
@@ -147,8 +160,81 @@ def test_unported_config_exits_2_naming_its_item(config, capsys, monkeypatch):
 
 
 def test_unported_config_exit_status_from_the_cli():
-    proc = _bench("--config", "serve_fleet")
-    assert proc.returncode == 2 and "item 6" in proc.stderr and proc.stdout == ""
+    assert sorted(bench.UNPORTED) == ["serve_multi", "train_chaos"]
+    proc = _bench("--config", "serve_multi")
+    assert proc.returncode == 2 and "item 8" in proc.stderr and proc.stdout == ""
+
+
+STREAM_SMOKE = {"WATERNET_BENCH_HW": "16", "WATERNET_BENCH_SERVE_IMAGES": "3", "WATERNET_BENCH_SERVE_BATCH": "2",
+                "WATERNET_BENCH_SERVE_BUCKETS": "1", "WATERNET_BENCH_STREAMS": "2",
+                "WATERNET_BENCH_STREAM_FRAMES": "3", "WATERNET_BENCH_OBS_ROUNDS": "1"}
+
+
+def test_stream_config_ends_in_its_contract_line():
+    """``--config stream`` at a tiny size (2 streams of 3 frames over 3
+    images around 16²): the JAX line's fields, every frame accounted on
+    both sides, nothing met cold."""
+    proc = _bench("--config", "stream", **STREAM_SMOKE)
+    assert proc.returncode == 0, proc.stderr
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["metric"] == "video_stream_fps" and line["unit"] == "fps/stream" and line["vs_baseline"] is None
+    assert line["value"] > 0 and math.isfinite(line["value"]) and line["accounted"] is True
+    assert {"calibrated_fps", "offered_fps_per_stream", "budget_ms", "p99_frame_ms", "p99_within_budget",
+            "fps_per_stream_at_2x", "frames_delivered", "frames_dropped", "frames_out_of_budget",
+            "stream_downgrades", "streams_refused", "fallback_native_shapes"} <= set(line)
+    assert 0.0 <= line["drop_rate_at_2x"] <= 1.0 and 0.0 <= line["downgrade_rate_at_2x"] <= 1.0
+    assert isinstance(line["p99_within_budget"], bool) and line["budget_ms"] > 0
+    # Calibration (6 frames) and two phases of 2 x 3, every frame delivered.
+    assert line["frames_delivered"] == 6 + 6 + 6 - line["frames_dropped"] - line["frames_out_of_budget"]
+    assert (line["streams"], line["frames_per_stream"]) == (2, 3)
+    assert line["cold_dispatches"] == 0 and line["compiles"] == 2 and line["device_kind"] == "cpu"
+
+
+@pytest.mark.parametrize("config", ["obs", "stream_reuse"])
+def test_obs_and_stream_reuse_lines_at_a_tiny_size(config, capsys, monkeypatch):
+    for k, v in STREAM_SMOKE.items():
+        monkeypatch.setenv(k, v)
+    assert bench.main(["--config", config, "--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == PORTED_STREAMS[config] and math.isfinite(line["value"])
+    if config == "obs":
+        assert line["byte_identical"] is True and line["spans_per_traced_run"] > 0 and line["spans_evicted"] == 0
+    else:
+        # 2 of 3 frames static at 75%: reuse answers them without compute.
+        assert line["accounted"] is True and line["frames_reused"] > 0 and line["flicker_index_delta"] == 0.0
+
+
+def test_serve_chaos_line_at_a_tiny_size():
+    """``serve_chaos`` at the JAX contract test's size (6 images around
+    24², 2 slots, 20 requests). The CPU gives one replica a tier, so the
+    crashed replica itself must be quarantined, re-warmed and reintegrated
+    while its batches wait, and every request reconciles with ``/stats``."""
+    line = bench.bench_serving_chaos(torch.device("cpu"), n_images=6, max_batch=2, max_buckets=1, base_hw=24,
+                                     concurrency=4, requests=20, watchdog_sec=2.0)
+    assert line["metric"] == "chaos_images_per_sec" and line["unit"] == "images/sec" and line["value"] > 0
+    assert line["replicas"] == 1 and line["note"].startswith("one replica a tier")
+    assert line["quarantines"] >= 1 and line["reintegrations"] >= 1 and line["recovered"] is True
+    assert line["recovery_sec"] > 0 and line["retried"] >= 1
+    assert line["errors"] == 0 and line["conn_reset"] == 0 and line["accounted"] is True, line
+    assert line["faults"] == "replica_crash@2,replica_hang@5"
+    assert line["replica_health"] == {"quality": {0: "healthy"}, "fast": {0: "healthy"}}
+    json.dumps(line)
+
+
+def test_serve_adaptive_line_at_a_tiny_size(monkeypatch):
+    """``serve_adaptive`` over 3 images around 16², 8 requests a phase:
+    the low phase's answers byte-identical across the fixed and adaptive
+    arms, and neither arm meets a shape mid-serve."""
+    monkeypatch.setenv("WATERNET_BENCH_HW", "16")
+    line = bench.bench_serve_adaptive(torch.device("cpu"), n_images=3, max_batch=2, max_buckets=1,
+                                      requests_per_phase=8)
+    assert line["metric"] == "adaptive_p50_ms" and line["unit"] == "ms"
+    assert line["value"] > 0 and math.isfinite(line["value"]) and line["p50_unloaded_fixed_ms"] > 0
+    assert line["byte_identical"] is True and line["cold_dispatches"] == 0
+    assert line["compiles_mid_serve_fixed"] == 0 and line["compiles_mid_serve_adaptive"] == 0
+    assert line["images_per_sec_fixed"] > 0 and line["images_per_sec_adaptive"] > 0
+    assert (line["requests_per_phase"], line["n_images"], line["max_batch"]) == (8, 3, 2)
+    json.dumps(line)
 
 
 VIDEO = ("metric", "value", "unit", "vs_baseline", "batch", "frame_ms", "quantized", "mfu", "hbm_peak_bytes",

@@ -217,7 +217,8 @@ for m in pkgutil.walk_packages(waternet_tpu_torch.__path__, "waternet_tpu_torch.
 import chip_smoke
 for name in ("data.pipeline", "data.uieb", "training.metrics_nr", "score", "data.video",
              "metrics.flicker", "inference", "serving.server", "serving.batcher",
-             "serving.replicas", "ops.masked", "models.can", "models.quant", "export"):
+             "serving.replicas", "ops.masked", "models.can", "models.quant", "export",
+             "serving.streams", "serving.fleet", "obs.cli"):
     assert "waternet_tpu_torch." + name in sys.modules, name
 bad = sorted(
     m for m in sys.modules

@@ -119,8 +119,8 @@ def test_healthz_enhance_stats_metrics_and_routes(server, engine):
     status, _, body = _request(port, "GET", "/healthz")
     assert status == 200
     assert json.loads(body) == {
-        "ready": True, "warmed": True, "draining": False, "status": "ok",
-        "replicas": {"quality": {"0": "healthy"}},
+        "ready": True, "worker_id": None, "warmed": True, "draining": False, "active_streams": 0,
+        "status": "ok", "replicas": {"quality": {"0": "healthy"}},
     }
     bgr = photo(30, 30, 1)
     status, headers, body = _request(port, "POST", "/enhance", body=_png(bgr))
@@ -140,8 +140,9 @@ def test_healthz_enhance_stats_metrics_and_routes(server, engine):
     status, _, body = _request(port, "POST", "/enhance", body=b"not an image")
     assert status == 400 and b"not a decodable image" in body
     assert _request(port, "GET", "/enhance")[0] == 405
-    status, headers, body = _request(port, "POST", "/stream", body=b"")
-    assert status == 404 and b"item 6" in body and headers.get("Connection") == "close"
+    # /stream is served (tests/test_torch_streams.py); only POST opens a session.
+    status, _, body = _request(port, "GET", "/stream")
+    assert status == 405 and b"length-prefixed frame stream" in body
     status, _, body = _request(port, "POST", "/enhance", body=_png(bgr), headers={"X-Tier": "fast"})
     assert status == 400 and b"fast tier not configured" in body
     assert _request(port, "POST", "/enhance", body=_png(bgr), headers={"X-Tier": "turbo"})[0] == 400
@@ -477,11 +478,21 @@ def test_server_and_loadgen_clis_end_to_end(tmp_path):
                                        (["--stream-window", "4"], "item 6"),
                                        (["--stream-reuse-threshold", "1.5"], "item 6"),
                                        (["--stream-max-reuse-run", "3"], "item 6")])
-def test_server_flags_of_later_slices_exit_2(flag, item, capsys):
+def test_server_flags_of_later_slices_exit_2(flag, item, monkeypatch, capsys):
+    """The stream flags once exited 2 naming their ROADMAP item (hence the
+    name). They are ported now: each reaches the ``ServingServer`` the CLI
+    builds, and nothing on stderr names ``item`` as still to port."""
     from waternet_tpu_torch.serving import server
 
-    assert server.main(["--device", "cpu", *flag]) == 2
-    assert item in capsys.readouterr().err
+    built = []
+    monkeypatch.setattr(server.ServingServer, "run", lambda self, install_signal_handlers=True: built.append(self) or 0)
+    assert server.main(["--device", "cpu", "--weights", TEACHER, "--serve-buckets", "32", *flag]) == 0
+    attr = {"--max-streams": "max_streams", "--stream-window": "stream_window",
+            "--stream-reuse-threshold": "stream_reuse_threshold",
+            "--stream-max-reuse-run": "stream_max_reuse_run"}[flag[0]]
+    assert getattr(built[0], attr) == type(getattr(built[0], attr))(flag[1])
+    err = capsys.readouterr().err
+    assert f"Queue A {item}" not in err and "not ported" not in err
 
 
 def test_server_and_roundtrip_default_to_cuda():

@@ -192,6 +192,7 @@ class OrderedPipeline:
                 item = next(self._items)
             except StopIteration:
                 break
+            # jaxlint: disable-next=R101 _fifo is consumer-thread-only: workers run fn(), never touch the FIFO
             self._fifo.append(self._pool.submit(self.fn, item))
 
     def __iter__(self) -> Iterator:
@@ -214,6 +215,7 @@ class OrderedPipeline:
         if not self._fifo:
             self.close()
             raise StopIteration
+        # jaxlint: disable-next=R101 _fifo is consumer-thread-only: workers run fn(), never touch the FIFO
         fut = self._fifo.popleft()
         stalled = not fut.done()
         t0 = time.perf_counter()
@@ -237,6 +239,7 @@ class OrderedPipeline:
         self._items = iter(())
         for fut in self._fifo:
             fut.cancel()
+        # jaxlint: disable-next=R101 _fifo is consumer-thread-only: workers run fn(), never touch the FIFO
         self._fifo.clear()
         if self._pool is not None:
             self._pool.shutdown(wait=True, cancel_futures=True)

@@ -72,9 +72,14 @@ class _ServingEngineBase:
     quantized = False
 
     def _init_keys(self) -> None:
+        # Called from the constructor, before any thread can see the engine:
+        # the first writes need no lock.
         self._keys_lock = threading.Lock()
+        # jaxlint: disable-next=R101 constructor-time first write, before any thread exists
         self._seen: set = set()  # guarded-by: self._keys_lock
+        # jaxlint: disable-next=R101 constructor-time first write, before any thread exists
         self._warm: set = set()  # guarded-by: self._keys_lock
+        # jaxlint: disable-next=R101 constructor-time first write, before any thread exists
         self.cold_dispatches = 0  # guarded-by: self._keys_lock
 
     def enhance(self, rgb_batch) -> np.ndarray:

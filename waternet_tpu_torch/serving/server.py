@@ -48,6 +48,21 @@ one port and feeds decoded request images straight into the
   distilled CAN student (``StudentEngine``) in its own replica pool on
   the same ladder; ``X-Tier: fast`` picks it per request. Without a
   student, ``X-Tier: fast`` answers 400 "fast tier not configured".
+* **Stream sessions.** ``POST /stream`` opens a live video session
+  (``serving/streams.py``): length-prefixed JPEG/PNG frames in, enhanced
+  frames out in strict submit order on the same connection, each frame
+  under a freshness budget derived from the stream's declared fps, with
+  explicit drop-oldest / brown-out / refuse-new-sessions degradation
+  under overload. Stream admission is bounded by ``--max-streams``; the
+  per-session delivery window by ``--stream-window``;
+  ``--stream-reuse-threshold`` arms temporal frame reuse (``R``
+  records), capped by ``--stream-max-reuse-run``.
+* **Fleet identity and heartbeats.** Spawned by the fleet router
+  (``serving/fleet.py``), the worker stamps ``WATERNET_WORKER_ID`` as
+  ``X-Worker-Id`` on every ``/enhance`` answer and stream head, and
+  beats its heartbeat file (``startup`` during warmup, ``serve`` once
+  ready) from the event loop, so a wedged loop stops both ``/healthz``
+  and the beats.
 * **Response cache** (off by default). ``--response-cache N`` arms a
   bounded LRU over rendered ``/enhance`` answers keyed on (payload
   digest, tier, bucket ladder, weights generation) — hits stamp
@@ -58,10 +73,9 @@ Endpoints: ``POST /enhance`` (image file bytes in, PNG out — the body is
 whatever ``cv2.imdecode`` reads, which is exactly what ``cv2.imread``
 reads on the local path, so the CLI and the service stay behaviorally
 interchangeable via ``python -m waternet_tpu_torch.inference
---serve-url``); ``GET /healthz``; ``GET /stats``; ``GET /metrics``;
-``POST /admin/reload``; ``POST /admin/policy``. ``POST /stream`` answers 404: stream sessions
-are ROADMAP Queue A item 6 (streams), with the fleet router's worker
-identity and heartbeats.
+--serve-url``); ``POST /stream`` (length-prefixed frame session);
+``GET /healthz``; ``GET /stats``; ``GET /metrics``; ``POST
+/admin/reload``; ``POST /admin/policy``.
 
 The HTTP layer is hand-rolled on ``asyncio.start_server`` (persistent
 connections, Content-Length bodies). Request decode runs in the loop's
@@ -90,6 +104,12 @@ from waternet_tpu_torch.data.pipeline import THREAD_PREFIX
 from waternet_tpu_torch.obs import trace
 from waternet_tpu_torch.obs.prometheus import render_prometheus
 from waternet_tpu_torch.resilience import faults
+from waternet_tpu_torch.resilience.heartbeat import (
+    ENV_WORKER_GENERATION,
+    ENV_WORKER_ID,
+    ENV_WORKER_SLOT,
+    HeartbeatWriter,
+)
 from waternet_tpu_torch.resilience.preemption import PreemptionGuard
 from waternet_tpu_torch.serving.batcher import (
     DeadlineExpired,
@@ -103,8 +123,9 @@ from waternet_tpu_torch.serving.replicas import (
     ReplicaUnavailable,
     SupervisionConfig,
 )
-from waternet_tpu_torch.serving.reuse import ResponseCache
+from waternet_tpu_torch.serving.reuse import DEFAULT_MAX_REUSE_RUN, ResponseCache
 from waternet_tpu_torch.serving.stats import ServingStats
+from waternet_tpu_torch.serving.streams import StreamConfig, StreamManager
 
 _REASONS = {
     200: "OK",
@@ -175,12 +196,6 @@ def _decode_request_image(body: bytes):
         return None
     return cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
 
-
-#: What waits for a later slice: the route answers 404 with this, and the
-#: server CLI's flags of these parts exit 2 naming their ROADMAP item.
-LATER = {
-    "streams": "ROADMAP Queue A item 6 (streams: serving/streams.py)",
-}
 
 # Reusable per-thread BGR staging canvas for the encode path (the
 # copy-lean response path, docs/SERVING.md "Adaptive scheduling"):
@@ -254,6 +269,10 @@ class ServingServer:
         encode_threads: int = 2,
         fast_engine=None,
         downgrade_watermark: Optional[int] = None,
+        max_streams: int = 8,
+        stream_window: int = 8,
+        stream_reuse_threshold: Optional[float] = None,
+        stream_max_reuse_run: int = DEFAULT_MAX_REUSE_RUN,
     ):
         if png_level is not None and not (0 <= int(png_level) <= 9):
             raise ValueError(
@@ -275,6 +294,16 @@ class ServingServer:
         self.engine = engine
         self.fast_engine = fast_engine
         self.downgrade_watermark = int(downgrade_watermark)
+        self.max_streams = int(max_streams)
+        self.stream_window = int(stream_window)
+        # Temporal reuse: the server-wide default gating threshold (None =
+        # off; sessions override per connection with X-Stream-Reuse) and
+        # the staleness cap on consecutive reuses.
+        self.stream_reuse_threshold = (
+            None if stream_reuse_threshold is None
+            else float(stream_reuse_threshold)
+        )
+        self.stream_max_reuse_run = int(stream_max_reuse_run)
         self.ladder = ladder
         self.host = host
         self.port = int(port)
@@ -322,7 +351,16 @@ class ServingServer:
             # CLI before any engine warms), and the armed engine grades
             # /healthz and annotates /stats + /metrics from then on.
             self.stats.arm_slo(SloEngine(parse_slo(slo), spec=slo))
+        # Fleet identity: when the fleet router spawned this process it
+        # named it via env; the name is stamped on every /enhance answer
+        # and stream head as X-Worker-Id so client-side ledgers can split
+        # accounting by the worker that actually served.
+        self.worker_id = os.environ.get(ENV_WORKER_ID) or None
+        self._ident: Tuple = (
+            (("X-Worker-Id", self.worker_id),) if self.worker_id else ()
+        )
         self.batcher: Optional[DynamicBatcher] = None
+        self.streams: Optional[StreamManager] = None
         self.bound_port: Optional[int] = None
         self.ready = threading.Event()
         self.draining = threading.Event()
@@ -396,6 +434,7 @@ class ServingServer:
         if guard is not None:
             guard.__enter__()
         server = None
+        beat_task = None
         if self.obs_loop_lag:
             from waternet_tpu_torch.analysis.looptrace import LoopTracer
 
@@ -418,6 +457,35 @@ class ServingServer:
                 f"{self.bound_port}",
                 flush=True,
             )
+            # Fleet heartbeats (the resilience/heartbeat.py env contract):
+            # startup-phase beats announce the warmup, serve-phase beats
+            # prove steady state. The beat task rides THIS event loop on
+            # purpose — a wedged loop (gateway_hang) stops beats exactly
+            # when /healthz stops answering, so the router's two health
+            # signals agree by construction.
+            hb = HeartbeatWriter.resolve(
+                process_id=int(os.environ.get(ENV_WORKER_SLOT, "0") or 0),
+                generation=int(
+                    os.environ.get(ENV_WORKER_GENERATION, "0") or 0
+                ),
+            )
+            if hb is not None:
+                hb.beat(phase="startup", force=True)
+
+                async def _beat_loop():
+                    while True:
+                        hb.beat(
+                            step=self.stats.requests,
+                            phase=(
+                                "serve" if self.ready.is_set()
+                                else "startup"
+                            ),
+                        )
+                        await asyncio.sleep(hb.min_interval_sec / 2)
+
+                beat_task = asyncio.get_running_loop().create_task(
+                    _beat_loop()
+                )
 
             # Warmup in the executor: /healthz answers (503, ready:false)
             # the whole time, so orchestrators see a live-but-not-ready
@@ -447,6 +515,16 @@ class ServingServer:
             )
             loop = asyncio.get_running_loop()
             self.batcher = await loop.run_in_executor(None, _build_batcher)
+            self.streams = StreamManager(
+                batcher=self.batcher,
+                stats=self.stats,
+                max_streams=self.max_streams,
+                window=self.stream_window,
+                admit_watermark=self.admit_watermark,
+                decode=_decode_request_image,
+                encode=self._encode_png,
+                draining=self.draining,
+            )
             self.ready.set()
             print(
                 f"waternet-serve: ready ({len(self.ladder)} buckets x "
@@ -474,7 +552,11 @@ class ServingServer:
             while time.monotonic() < deadline:
                 with self._inflight_lock:
                     inflight = self._inflight
-                if inflight == 0 and self.batcher.queue_depth() == 0:
+                if (
+                    inflight == 0
+                    and self.batcher.queue_depth() == 0
+                    and self.streams.active_count() == 0
+                ):
                     clean = True
                     break
                 await asyncio.sleep(0.02)
@@ -487,6 +569,8 @@ class ServingServer:
                 self._loop_tracer.uninstall()
             if self._encode_pool is not None:
                 self._encode_pool.shutdown(wait=True)
+            if beat_task is not None:
+                beat_task.cancel()
             if server is not None:
                 server.close()
                 await server.wait_closed()
@@ -611,14 +695,15 @@ class ServingServer:
                 writer, 413, {"error": "payload too large"}, close=True
             )
         if path == "/stream":
-            # A stream upload has no Content-Length: the rest of the
-            # connection is frames, so the answer closes it.
-            return self._json(
-                writer, 404,
-                {"error": f"no route {path}: stream sessions are "
-                 f"{LATER['streams']}"},
-                close=True,
-            )
+            if method != "POST":
+                return self._json(
+                    writer, 405,
+                    {"error": "POST a length-prefixed frame stream to /stream"},
+                )
+            # A stream session owns the rest of the connection (the
+            # upload has no Content-Length); it always closes.
+            await self._stream(headers, reader, writer)
+            return False
         if path == "/healthz":
             return self._healthz(writer) and not want_close
         if path == "/stats":
@@ -674,8 +759,15 @@ class ServingServer:
         ready = self.ready.is_set() and not self.draining.is_set()
         payload = {
             "ready": ready,
+            "worker_id": self.worker_id,
             "warmed": self.ready.is_set(),
             "draining": self.draining.is_set(),
+            # Streams open right now: readiness stays true while sessions
+            # are live (they are traffic, not a fault), but orchestrators
+            # can see the load.
+            "active_streams": (
+                self.streams.active_count() if self.streams is not None else 0
+            ),
         }
         if not self.ready.is_set():
             payload["status"] = "warming"
@@ -725,7 +817,7 @@ class ServingServer:
         # stamp it on every span this request touches — a failed loadgen
         # request can be found in the server trace by its id.
         req_id = _request_id(headers)
-        rid = (("X-Request-Id", req_id),)
+        rid = (("X-Request-Id", req_id),) + self._ident
 
         def jresp(status, payload, extra=(), close=False):
             return self._json(
@@ -746,7 +838,7 @@ class ServingServer:
             # Blocking the LOOP thread is the point: /healthz and every
             # open connection freeze together, which is exactly the
             # wedge a router's hang detection must catch.
-            gate.hang.wait()
+            gate.hang.wait()  # jaxlint: disable=R201 fault injection: wedging the loop IS the test
 
         t_req0 = time.perf_counter() if trace.enabled() else None
         if self.draining.is_set():
@@ -945,6 +1037,103 @@ class ServingServer:
             with self._inflight_lock:
                 self._inflight -= 1
 
+    # -- /stream -------------------------------------------------------
+
+    async def _stream(self, headers, reader, writer) -> None:
+        """One stream session end to end.
+
+        Admission mirrors ``/enhance`` — draining and warming answer
+        503; tier names are validated loudly — plus the stream-specific
+        third degradation rung: past ``--max-streams`` open sessions or
+        a saturated queue, NEW sessions get 503 + Retry-After while
+        established sessions keep their QoS. Admitted sessions get the
+        ``application/x-waternet-stream`` response head and then run
+        entirely inside the :class:`StreamManager`."""
+        # Session-level X-Request-Id, exactly as on /enhance: echoed on
+        # every refusal and on the stream head; frame spans derive
+        # per-frame ids as "<id>/<seq>".
+        req_id = _request_id(headers)
+        rid = (("X-Request-Id", req_id),) + self._ident
+
+        def jresp(status, payload, extra=()):
+            self._json(
+                writer, status, payload, extra=tuple(extra) + rid,
+                close=True,
+            )
+
+        if self.draining.is_set():
+            jresp(503, {"error": "draining"})
+            return
+        if not self.ready.is_set():
+            jresp(
+                503,
+                {"error": "warming up"},
+                extra=(("Retry-After", "1"),),
+            )
+            return
+        try:
+            cfg = StreamConfig.from_headers(
+                headers,
+                self.stream_window,
+                default_reuse=self.stream_reuse_threshold,
+                default_max_reuse_run=self.stream_max_reuse_run,
+            )
+        except ValueError as err:
+            jresp(400, {"error": str(err)})
+            return
+        if cfg.tier not in ("quality", "fast"):
+            jresp(
+                400,
+                {
+                    "error": f"unknown tier {cfg.tier!r}",
+                    "tiers": list(self.batcher.tiers),
+                },
+            )
+            return
+        if cfg.tier not in self.batcher.tiers:
+            jresp(
+                400,
+                {
+                    "error": "fast tier not configured on this server "
+                    "(start the server with --student-weights)",
+                    "tiers": list(self.batcher.tiers),
+                },
+            )
+            return
+        refusal = self.streams.refusal()
+        if refusal is not None:
+            # Degradation rung 3: refuse NEW sessions, protect the
+            # established ones. 503 (not 429): the service is telling
+            # orchestrators to place the stream elsewhere for a while.
+            self.stats.record_stream_refused()
+            jresp(
+                503,
+                {"error": refusal},
+                extra=(("Retry-After", "1"),),
+            )
+            return
+        # In-flight for the drain poll, like /enhance: the batcher must
+        # not close under an admitted session.
+        with self._inflight_lock:
+            self._inflight += 1
+        try:
+            head = (
+                "HTTP/1.1 200 OK\r\n"
+                "Content-Type: application/x-waternet-stream\r\n"
+                f"X-Request-Id: {req_id}\r\n"
+            )
+            if self.worker_id:
+                head += f"X-Worker-Id: {self.worker_id}\r\n"
+            head += "Connection: close\r\n\r\n"
+            writer.write(head.encode("latin-1"))
+            await writer.drain()
+            await self.streams.handle(cfg, reader, writer, request_id=req_id)
+        except (ConnectionError, asyncio.IncompleteReadError):
+            pass  # client went away; the session already cleaned up
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
+
     # -- /admin/reload -------------------------------------------------
 
     def _do_reload(self, path: str):
@@ -1046,13 +1235,6 @@ class ServingServer:
 # ----------------------------------------------------------------------
 # CLI
 # ----------------------------------------------------------------------
-
-#: Server flags of the JAX CLI whose parts wait for a later slice: setting
-#: one exits 2 naming its ROADMAP item.
-_LATER_FLAGS = {
-    "max_streams": "streams", "stream_window": "streams",
-    "stream_reuse_threshold": "streams", "stream_max_reuse_run": "streams",
-}
 
 
 def parse_args(argv=None):
@@ -1189,26 +1371,39 @@ def parse_args(argv=None):
         "instead of shed (default: --admit-watermark). Needs "
         "--student-weights; never applied to requests that did not opt in.",
     )
-    later = parser.add_argument_group(
-        "parts of a later slice (setting one exits 2 naming its ROADMAP item)"
+    parser.add_argument(
+        "--max-streams", type=int, default=8,
+        help="Open stream-session bound: past it NEW POST /stream "
+        "sessions are refused with 503 + Retry-After while established "
+        "streams keep their QoS.",
     )
-    later.add_argument("--max-streams", type=int, default=None)
-    later.add_argument("--stream-window", type=int, default=None)
-    later.add_argument("--stream-reuse-threshold", type=float, default=None)
-    later.add_argument("--stream-max-reuse-run", type=int, default=None)
+    parser.add_argument(
+        "--stream-window", type=int, default=8,
+        help="Default per-stream delivery window: frames awaiting "
+        "delivery past it are dropped oldest-first with an explicit drop "
+        "record (clients override per session with X-Stream-Window).",
+    )
+    parser.add_argument(
+        "--stream-reuse-threshold", type=float, default=None,
+        help="Enable temporal frame reuse for streams: a frame whose "
+        "decimated mean-abs delta against the last computed frame is at "
+        "or below this threshold (uint8 scale) is answered from the "
+        "cached enhanced frame as an R record, without compute. 0 reuses "
+        "only byte-exact static frames; unset (the default) disables "
+        "reuse. Sessions override per connection with X-Stream-Reuse.",
+    )
+    parser.add_argument(
+        "--stream-max-reuse-run", type=int, default=DEFAULT_MAX_REUSE_RUN,
+        help="Staleness cap on temporal reuse: after this many "
+        "consecutive reused frames the next frame is recomputed "
+        "regardless of the delta score (sessions override with "
+        "X-Stream-Max-Reuse-Run).",
+    )
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    for name, part in _LATER_FLAGS.items():
-        if getattr(args, name) is not None:
-            flag = "--" + name.replace("_", "-")
-            print(
-                f"{flag} is not ported to waternet_tpu_torch yet: {LATER[part]}",
-                file=sys.stderr,
-            )
-            return 2
     if args.student_quantize and not args.student_weights:
         # Pure flag validation — fail before any engine is built.
         print("--student-quantize needs --student-weights (there is no student to quantize)", file=sys.stderr)
@@ -1266,6 +1461,10 @@ def main(argv=None) -> int:
         coalesce=args.coalesce,
         png_level=args.png_level,
         encode_threads=args.encode_threads,
+        max_streams=args.max_streams,
+        stream_window=args.stream_window,
+        stream_reuse_threshold=args.stream_reuse_threshold,
+        stream_max_reuse_run=args.stream_max_reuse_run,
     )
     return server.run(install_signal_handlers=True)
 
