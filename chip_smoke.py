@@ -58,23 +58,25 @@ Phases; any failure exits non-zero, and nothing below is caught:
    CPU port from the same parameters and batch;
 8. T4, host-fed training at the JAX CLI's default config (16 x 112x112,
    bf16, perceptual on, device preprocessing) through ``python -m
-   waternet_tpu_torch.train``: 272 synthetic pairs (16 train steps and one
-   val step an epoch), 2 epochs with ``--workers 2``, then with
-   ``--workers 0``, then the cached raw path at the same size and
-   precision as the same-call yardstick; per warm epoch images/s, step
-   ms, the pipeline's stall pct, per-stage ms and transfer bytes (two
-   uint8 tensors a batch, 1,204,224 bytes), peak memory and launches
-   (one ``tile_lut`` and one ``clahe_lut_planes`` per train and val
-   step, none of the other two). Then, on ``TrainingEngine`` directly at
-   fp32 with cuDNN's deterministic algorithms, 4 steps of 16 x 112x112
-   host-fed with 2 and 0 workers against the cached raw path: the
-   network's five input views of every step and the step's metrics, bit
-   for bit. Then 2 ``--host-preprocess`` epochs (five float32 views,
-   12,042,240 bytes a batch; no kernel launches: cv2 runs CLAHE on the
-   host), and a UIEB-layout tree written with cv2 at 128x160: one epoch
-   trained from ``--data-root`` (resized to 112x112 on load) and ``python
-   -m waternet_tpu_torch.score`` in its paired and no-reference modes on
-   it, with finite metrics;
+   waternet_tpu_torch.train``: 144 synthetic pairs (8 train steps and one
+   val step an epoch), 2 epochs with ``--workers 2``, then the cached raw
+   path at the same size and precision, through ``TrainingEngine`` in
+   this process (no process start-up), as the same-call yardstick; per
+   warm epoch images/s, step ms, the pipeline's stall pct, per-stage ms
+   and transfer bytes (two uint8 tensors a batch, 1,204,224 bytes), peak
+   memory and launches (one ``tile_lut`` and one ``clahe_lut_planes`` per
+   train and val step, none of the other two). Then, side by side: a
+   UIEB-layout tree written with cv2 at 128x160, one epoch trained from
+   ``--data-root`` on device preprocessing (resized to 112x112 on load;
+   T4's launches and bytes a step); one ``--host-preprocess`` epoch of 128
+   synthetic pairs (five float32 views, 12,042,240 bytes a batch; no
+   kernel launches: cv2 runs CLAHE on the host); ``python -m
+   waternet_tpu_torch.score`` in its paired and no-reference modes on the
+   tree, with finite metrics; meanwhile, on
+   ``TrainingEngine`` directly at fp32 with cuDNN's deterministic
+   algorithms, 4 steps of 16 x 112x112 host-fed with 2 and 0 workers
+   against the cached raw path: the network's five input views of every
+   step and the step's metrics, bit for bit;
 9. T5, the precache tables (``--device-cache``'s default with the raw
    codec) at T4's config: ``python -m waternet_tpu_torch.train
    --device-cache`` (64 pairs, 2 epochs, bf16), then with
@@ -132,9 +134,10 @@ Phases; any failure exits non-zero, and nothing below is caught:
    replayed from the epoch-start snapshot); R4, ``python -m
    waternet_tpu_torch.train`` at T4's bf16 config with
    ``--heartbeat-dir``, ``--perf-csv`` and ``--profile-dir``,
-   uninterrupted, then with ``WATERNET_FAULTS=sigterm@20`` and again with
-   ``--resume auto``: the resumed run ends at the uninterrupted run's
-   step (32), every heartbeat's last record names its end (``done``,
+   uninterrupted and, side by side, with ``WATERNET_FAULTS=sigterm@10``,
+   then again with ``--resume auto``, all three beside R1-R3: the
+   resumed run ends at the uninterrupted run's
+   step (16), every heartbeat's last record names its end (``done``,
    ``preempted``), the metrics are finite, ``mfu_live`` is in (0, 1] and
    ``hbm_peak_bytes`` > 0, and the resumed epoch's Chrome trace names
    ``clahe_tile_lut_kernel`` and ``clahe_lut_blend_kernel``;
@@ -174,9 +177,10 @@ Phases; any failure exits non-zero, and nothing below is caught:
    the 17 convolutions' int32 accumulators equal to the CPU port's on the
    same inputs (the int8 model's ``acc_hook``), the answers within one level
    of the CPU port's int8 engine, one launch of each CLAHE kernel; F2b: both
-   int8 engines calibrated on the card (not given the CPU port's qtree):
-   each conv's input scale's relative gap from the CPU port's, and the
-   answers' level gap at R3 (printed, not held to a bound); the
+   int8 engines built for the card (not given the CPU port's qtree; they
+   calibrate on the host): every conv's input scale equal to the CPU
+   port's, the answers at R3 within one level, the student's int32
+   accumulators equal, and each engine's build seconds; the
    int8 quality and student engines at R1 (time, peak memory, the widest
    layer's im2col band). F3: ``python -m waternet_tpu_torch.train
    --distill --teacher-weights teacher.npz`` at 16 x 112x112 bf16 with
@@ -194,7 +198,7 @@ Phases; any failure exits non-zero, and nothing below is caught:
    artifacts and WaterNet's float one through ``save_artifact`` and
    ``load_artifact`` on the card, at R3 and R2, bit for bit the eager
    forward. F6: ``bench --config tiers`` and ``WATERNET_QUANT=1 bench
-   --config video`` (8 timed calls);
+   --config video`` (8 timed calls), side by side;
 14. St, stream sessions and the fleet. One ``ServingServer`` over
    phase 12's ladder: the bf16 quality engine with device preprocessing,
    the fixture student (bf16) as the fast tier. (a) 3 paced ``POST
@@ -218,7 +222,31 @@ Phases; any failure exits non-zero, and nothing below is caught:
    1; the same upload answered byte-identically by every live worker. (g)
    ``python -m waternet_tpu_torch.obs.cli`` on (a)'s trace exits 0. (h)
    ``bench --config stream`` and ``--config serve_fleet`` at a reduced
-   size, each accounted (the fleet's also byte-identical and recovered).
+   size, side by side, each accounted (the fleet's also byte-identical
+   and recovered);
+15. M, multi-GPU on one card (its shards and ranks share it). (a) R1
+   through ``InferenceEngine(device_preprocess=True, spatial_shards=N,
+   devices=[card] * N)`` at N = 2 and 4, fp32 and bf16: one launch of
+   each CLAHE kernel a request, fp32 within one level and float atol 2e-5
+   of the unsharded engine, bf16 within its 3-level bound, each R1's p50
+   ms beside the unsharded one (overhead only: 26 rows computed twice a
+   seam, the window copies); (b) ``data_shards=2`` at 3 R1 frames (one
+   padded and cropped): within one level, 2 launches of each a request;
+   (c) a spatial-2 engine behind the ``DynamicBatcher`` on phase 12's
+   population (fp32, device preprocessing): its interior within one level
+   of the unsharded engine's bucketed answers, no cold dispatch; (d)
+   NCCL at world size 1: init, ``all_reduce``, barrier, destroy; (e)
+   ``python -m waternet_tpu_torch.resilience.supervisor --workers 2
+   --cpu-gloo`` at T1's fp32 config (two DDP ranks over gloo): both ranks'
+   final parameters' SHA-256 equal, the CSVs within rel 1e-3 of phase 7's
+   one-process T1 fp32 run, each rank's launches as T1's; beside it
+   the bench's ``train_chaos`` line, in process at an 8 s hang threshold
+   (recovered, 2 restarts, ``exact_resume`` printed), ``bench --config
+   serve_multi`` at a reduced size (``replica_invariant`` true, one
+   replica a card; with one card its ``note`` says both arms ran one
+   replica) and (f) the inference CLI with ``--spatial-shards 2``, which
+   exits non-zero naming the card count where fewer than 2 cards are
+   visible.
 
 The last lines are the ``{"kernels": [...]}`` summary, the card line and
 the ``{"ok": true, "device": ...}`` result. Inputs are made with numpy
@@ -269,9 +297,10 @@ TIMING_REPS = 25
 T1 = dict(synthetic=64, val_size=8, epochs=2, batch=8, hw=256)
 T2 = dict(synthetic=64, val_size=8, epochs=2, batch=16, hw=112)
 T3 = dict(batch=4, hw=64)
-T4 = dict(synthetic=272, val_size=16, epochs=2, batch=16, hw=112, precision="bf16")
+T4 = dict(synthetic=144, val_size=16, epochs=2, batch=16, hw=112, precision="bf16")
 T4_EXACT = dict(pairs=64, batch=16, hw=112)  # 4 steps
 T4_UIEB = dict(pairs=48, val_size=16, h=128, w=160)  # 2 train steps, 1 val step
+T4_HOST = dict(synthetic=128, val_size=16)  # 7 train steps, 1 val step (the split takes n // 8)
 # Launches per train or val step on the device-preprocess path, and on the
 # precached one.
 CLAHE_ONLY = {"tile_lut": 1, "clahe_lut_planes": 1, "tile_histogram": 0, "dct8_dequant_idct": 0}
@@ -292,10 +321,10 @@ BF16_VS_CPU = (1, 96, 128)
 # 2, batch index 2: resumed at batch 3), and R3's NaN at step 4 of one epoch.
 # R2: T4's step size host-fed (80 pairs: 5 steps an epoch), SIGTERM after
 # step 8, also epoch 2 batch index 2. R4: T4's CLI config, SIGTERM after step
-# 20 (16 steps an epoch: epoch 2, batch index 3).
+# 10 (8 steps an epoch: epoch 2, batch index 1).
 RESUME_R1 = dict(synthetic=64, val_size=8, epochs=2, batch=8, hw=256, sigterm=10, nan=4)
 RESUME_R2 = dict(pairs=80, epochs=2, batch=16, hw=112, workers=2, sigterm=8)
-RESUME_R4 = dict(sigterm=20)
+RESUME_R4 = dict(sigterm=10)
 # Phase 12 (S, serving): the population, its ladder, the slots a batch and
 # the load's concurrency; the S2 and S3 bounds.
 SERVE = dict(n=24, base=540, max_buckets=3, max_batch=4, concurrency=8)
@@ -317,6 +346,13 @@ STREAM_BENCH_ENV = {"WATERNET_BENCH_SERVE_IMAGES": "12", "WATERNET_BENCH_STREAMS
 # Three workers, as the JAX bench: its crash and hang take two of them down
 # at once, and the third must answer meanwhile.
 FLEET_BENCH_ENV = {"WATERNET_BENCH_FLEET_IMAGES": "8", "WATERNET_BENCH_SERVE_REQUESTS": "16"}
+# Phase 15 (M, multi-GPU on one card): the spatial shard counts held at R1,
+# the data shards and their odd batch, the two-rank DDP run at T1's fp32
+# config and its bound against phase 7's one-process run (the dct8 bound of
+# ROADMAP Queue C), and the hang threshold of the train_chaos bench that
+# runs beside it (the JAX bench's 12 s default would lengthen the phase).
+MULTI = dict(spatial=(2, 4), data_shards=2, data_batch=3, ddp_workers=2, ddp_rel=1e-3, chaos_hang_sec=8.0)
+SERVE_MULTI_BENCH_ENV = {"WATERNET_BENCH_SERVE_IMAGES": "12"}
 WATERNET_MAC_PER_PX = 1_089_824
 TRAIN_KEYS = ("mse", "ssim", "psnr", "perceptual_loss", "loss")
 VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -372,6 +408,19 @@ def table_chunks(n_items: int, batch: int) -> dict:
     CLAHE kernel per chunk of ``batch`` items (all variants together)."""
     chunks = -(-n_items // min(n_items, batch))
     return {"tile_lut": chunks, "clahe_lut_planes": chunks}
+
+
+def tile_keys(torch, l_pad, ty: int, tx: int):
+    """Each pixel of an (N, Hp, Wp) uint8 padded L plane keyed as ``(image
+    tile) * 256 + level``: one ``torch.bincount`` of these keys (with
+    ``minlength`` N * ty * tx * 256) is every tile's 256-bin histogram,
+    the library yardstick of the tile kernels. Built untimed."""
+    n, hp, wp = l_pad.shape
+    th, tw = hp // ty, wp // tx
+    tile_y = torch.arange(hp, device=l_pad.device) // th
+    tile_x = torch.arange(wp, device=l_pad.device) // tw
+    tile = (torch.arange(n, device=l_pad.device)[:, None, None] * ty + tile_y[None, :, None]) * tx + tile_x
+    return (tile * 256 + l_pad.long()).reshape(-1)
 
 
 def check(cond, msg):
@@ -530,10 +579,14 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
               f"luts_from_hist(tile_histogram) != tile_lut at {tag}")
         nbytes = n * hp * wp + n * ty * tx * 256 * 4
         b_ms, b_by = bound(nbytes)
+        keys = tile_keys(torch, l_pad, ty, tx)
+        n_bins = n * ty * tx * 256
+        check(torch.equal(torch.bincount(keys, minlength=n_bins).reshape(got.shape).to(got.dtype), got),
+              f"bincount yardstick != tile_histogram at {tag}")
         r = {
             "ms": device_ms(torch, lambda: kernels.tile_histogram(l_pad, (ty, tx)), flush),
             "plain_ms": device_ms(torch, lambda: kernels.tile_histogram_plain(l_pad, (ty, tx)), flush),
-            "library_ms": None,
+            "library_ms": device_ms(torch, lambda: torch.bincount(keys, minlength=n_bins), flush),
             "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
             "max_abs_err": (got - want).abs().max().item(),
         }
@@ -545,10 +598,28 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
     return summary
 
 
+def records(stdout: str, tag: str) -> list:
+    """Every ``<tag> {...}`` JSON record in a run's stdout, in order.
+
+    A record is found anywhere in a line, not only at its start: processes
+    that share one pipe (the supervisor's ranks) write unbuffered under
+    ``PYTHONUNBUFFERED``, where ``print`` sends its text and its newline in
+    two writes, so one rank's record can land after another's unterminated
+    line. Each record is one write below ``PIPE_BUF``, so it stays whole."""
+    out, key, dec = [], tag + " {", json.JSONDecoder()
+    for ln in stdout.splitlines():
+        at = ln.find(key)
+        while at >= 0:
+            rec, end = dec.raw_decode(ln, at + len(tag) + 1)
+            out.append(rec)
+            at = ln.find(key, end)
+    return out
+
+
 def train_cli(tag: str, args: list, keep=None):
     """``python -m waternet_tpu_torch.train`` on the card in a fresh run
     root; -> (its epoch_stats lines, its config.json, stdout). ``keep``: a
-    directory the run's ``last.npz`` is copied into."""
+    directory the run's ``last.npz`` and metric CSVs are copied into."""
     with tempfile.TemporaryDirectory() as root:
         cmd = [sys.executable, "-m", "waternet_tpu_torch.train", "--device", "cuda",
                "--seed", str(SEED), "--train-root", root, *args]
@@ -561,9 +632,9 @@ def train_cli(tag: str, args: list, keep=None):
             check((run / name).is_file(), f"{tag}: {name} missing")
         config = json.loads((run / "config.json").read_text())
         if keep is not None:
-            shutil.copy(run / "last.npz", Path(keep) / "last.npz")
-    stats = [json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()
-             if ln.startswith("epoch_stats ")]
+            for name in ("last.npz", "metrics-train.csv", "metrics-val.csv"):
+                shutil.copy(run / name, Path(keep) / name)
+    stats = records(proc.stdout, "epoch_stats")
     for s in stats:
         for k, v in list(s["train"].items()) + list(s["val"].items()):
             check(math.isfinite(v), f"{tag} epoch {s['epoch']}: {k} = {v}")
@@ -583,29 +654,39 @@ def check_launches(tag: str, s: dict, want: dict, totals: dict):
             totals[k] = totals.get(k, 0) + v
 
 
-def run_cli_training(torch, card, precision: str) -> dict:
-    """T1 through ``python -m waternet_tpu_torch.train``; returns the
-    launches of all epochs, checked per epoch."""
+def t1_args(precision: str) -> list:
     t = T1
-    stats, config, stdout = train_cli(f"T1 {precision}", [
-        "--synthetic", str(t["synthetic"]), "--val-size", str(t["val_size"]),
-        "--epochs", str(t["epochs"]), "--batch-size", str(t["batch"]),
-        "--height", str(t["hw"]), "--width", str(t["hw"]), "--precision", precision,
-        "--device-cache", "--cache-codec", "dct8",
-    ])
+    return ["--synthetic", str(t["synthetic"]), "--val-size", str(t["val_size"]),
+            "--epochs", str(t["epochs"]), "--batch-size", str(t["batch"]),
+            "--height", str(t["hw"]), "--width", str(t["hw"]), "--precision", precision,
+            "--device-cache", "--cache-codec", "dct8"]
+
+
+def t1_launches(tag: str, s: dict, totals: dict) -> None:
+    """One T1 epoch's launches: one dct8 decode and one of each CLAHE
+    kernel a train step; the val cache is raw with identity-variant
+    precache tables, built in the first val pass (one chunk), so its steps
+    launch nothing."""
+    t = T1
+    val_steps = -(-t["val_size"] // t["batch"])
+    check_launches(tag, s, {"train": (dict(CLAHE_ONLY, dct8_dequant_idct=1), s["steps"]),
+                            "val": (NO_LAUNCH, val_steps, table_chunks(t["val_size"], t["batch"])
+                                    if s["epoch"] == 1 else {})}, totals)
+
+
+def run_cli_training(torch, card, precision: str, keep=None) -> dict:
+    """T1 through ``python -m waternet_tpu_torch.train``; returns the
+    launches of all epochs, checked per epoch. ``keep``: where the run's
+    weights and CSVs are copied (phase 15 holds its DDP run to them)."""
+    t = T1
+    stats, config, stdout = train_cli(f"T1 {precision}", t1_args(precision), keep=keep)
     check(config["cache_codec"] == "dct8", f"T1 {precision}: config {config}")
     banner = [ln for ln in stdout.splitlines() if ln.startswith("Device cache:")]
     check(banner, "T1: no Device cache banner")
     check(len(stats) == t["epochs"], f"T1 {precision}: {len(stats)} epoch lines")
     totals = {}
-    steps = stats[0]["steps"]
-    val_steps = -(-t["val_size"] // t["batch"])
     for s in stats:
-        # The val cache is raw with identity-variant precache tables, built
-        # in the first val pass (one chunk): its steps launch nothing.
-        check_launches(f"T1 {precision}", s, {"train": (dict(CLAHE_ONLY, dct8_dequant_idct=1), steps),
-                                             "val": (NO_LAUNCH, val_steps, table_chunks(t["val_size"], t["batch"])
-                                                     if s["epoch"] == 1 else {})}, totals)
+        t1_launches(f"T1 {precision}", s, totals)
         flops = step_flops(t["batch"], t["hw"], t["hw"])
         print(json.dumps({
             "run": f"T1 {precision}", "epoch": s["epoch"],
@@ -788,33 +869,36 @@ def run_score(tag: str, args: list) -> dict:
     return metrics
 
 
-def run_t4(card) -> dict:
-    """T4: host-fed training through the CLI, its cached yardstick, the
-    host-preprocess epoch and the UIEB tree; returns the launches of the
-    host-fed runs, checked per epoch."""
+def run_t4(torch, dev, card) -> dict:
+    """T4: host-fed training through the CLI and its cached yardstick, one
+    after the other; then, side by side (none of their times is compared),
+    a device-preprocess epoch on a cv2-written UIEB tree, a synthetic
+    host-preprocess epoch, the scorer in both modes on the tree and the
+    engine's bit-for-bit check (:func:`run_t4_exact`). Returns the
+    launches of the host-fed runs, checked per epoch."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t = T4
     steps = (t["synthetic"] - t["val_size"]) // t["batch"]
     val_steps = t["val_size"] // t["batch"]
     device_pre = {"train": (CLAHE_ONLY, steps), "val": (CLAHE_ONLY, val_steps)}
     u8_bytes = 2 * t["batch"] * t["hw"] * t["hw"] * 3
     totals, warm = {}, {}
-    for workers in (2, 0):
-        tag = f"T4 workers={workers}"
-        stats, config, _ = train_cli(tag, t4_args(t["epochs"], workers))
-        check(len(stats) == t["epochs"] and config["device_preprocess"], f"{tag}: {config}")
-        for s in stats:
-            check(s["steps"] == steps, f"{tag}: {s['steps']} steps")
-            check_launches(tag, s, device_pre, totals)
-            if workers:
-                for part, p in (("train", s), ("val", s["val_pipeline"])):
-                    check(p["pipeline_transfer_bytes_per_batch"] == u8_bytes,
-                          f"{tag} {part}: {p['pipeline_transfer_bytes_per_batch']} bytes a batch, want {u8_bytes}")
-            t4_line(tag, s, card)
-        warm[tag] = stats[-1]
+    tag = "T4 workers=2"
+    stats, config, _ = train_cli(tag, t4_args(t["epochs"], 2))
+    check(len(stats) == t["epochs"] and config["device_preprocess"], f"{tag}: {config}")
+    for s in stats:
+        check(s["steps"] == steps, f"{tag}: {s['steps']} steps")
+        check_launches(tag, s, device_pre, totals)
+        for part, p in (("train", s), ("val", s["val_pipeline"])):
+            check(p["pipeline_transfer_bytes_per_batch"] == u8_bytes,
+                  f"{tag} {part}: {p['pipeline_transfer_bytes_per_batch']} bytes a batch, want {u8_bytes}")
+        t4_line(tag, s, card)
+    warm[tag] = stats[-1]
 
     # The same-call yardstick: the cached raw path, WB/GC/CLAHE in the step.
     tag = "T4 cached raw"
-    stats, _, _ = train_cli(tag, t4_args(t["epochs"], 0, "--device-cache", "--no-precache-histeq"))
+    stats = t4_cached_in_process(torch, dev)
     cached_totals = {}
     for s in stats:
         check_launches(tag, s, device_pre, cached_totals)
@@ -829,46 +913,93 @@ def run_t4(card) -> dict:
         "card": card,
     }), flush=True)
 
-    # Host preprocessing: cv2 on the host, five float32 views a batch.
-    tag = "T4 host-preprocess"
-    stats, config, _ = train_cli(tag, t4_args(t["epochs"], 2, "--host-preprocess"))
-    check(not config["device_preprocess"], f"{tag}: {config}")
+    # Side by side: UIEB from --data-root on device preprocessing (cv2
+    # writes the tree at 128x160, load_pair resizes to 112x112), a
+    # synthetic host-preprocess epoch at the same size (cv2 runs CLAHE on
+    # the host, so no kernel launches, and five float32 views a batch),
+    # and the scorer in both modes on the tree.
+    u, h = T4_UIEB, T4_HOST
+    one_epoch = ["--epochs", "1", "--batch-size", str(t["batch"]), "--height", str(t["hw"]),
+                 "--width", str(t["hw"]), "--precision", t["precision"], "--workers", "2"]
     views_bytes = 5 * 4 * t["batch"] * t["hw"] * t["hw"] * 3
-    for s in stats:
-        check_launches(tag, s, {"train": ({k: 0 for k in CLAHE_ONLY}, steps),
-                                "val": ({k: 0 for k in CLAHE_ONLY}, val_steps)}, totals)
-        for part, p in (("train", s), ("val", s["val_pipeline"])):
-            check(p["pipeline_transfer_bytes_per_batch"] == views_bytes,
-                  f"{tag} {part}: {p['pipeline_transfer_bytes_per_batch']} bytes a batch, want {views_bytes}")
-        t4_line(tag, s, card)
-
-    # UIEB from --data-root (cv2 writes the tree at 128x160, load_pair
-    # resizes to 112x112), then the scorer in both modes on it.
-    u = T4_UIEB
-    with tempfile.TemporaryDirectory() as d:
+    with tempfile.TemporaryDirectory() as d, ThreadPoolExecutor(4) as pool:
         tree = Path(d)
         write_uieb_tree(tree, u["pairs"], u["h"], u["w"])
-        tag = "T4 UIEB --data-root"
-        stats, _, _ = train_cli(tag, [
-            "--data-root", str(tree), "--val-size", str(u["val_size"]), "--epochs", "1",
-            "--batch-size", str(t["batch"]), "--height", str(t["hw"]), "--width", str(t["hw"]),
-            "--precision", t["precision"], "--workers", "2",
-        ])
-        n_train = u["pairs"] - u["val_size"]
-        for s in stats:
-            check(s["train_images"] == n_train, f"{tag}: {s['train_images']} train images")
-            check_launches(tag, s, {"train": (CLAHE_ONLY, n_train // t["batch"]),
-                                    "val": (CLAHE_ONLY, u["val_size"] // t["batch"])}, totals)
-            t4_line(tag, s, card)
-        paired = run_score("T4 score, paired", [
+        uieb = pool.submit(train_cli, "T4 UIEB --data-root",
+                           ["--data-root", str(tree), "--val-size", str(u["val_size"]), *one_epoch])
+        host = pool.submit(train_cli, "T4 host-preprocess", ["--synthetic", str(h["synthetic"]), "--val-size",
+                                                             str(h["val_size"]), *one_epoch, "--host-preprocess"])
+        paired = pool.submit(run_score, "T4 score, paired", [
             "--data-root", str(tree), "--val-size", str(u["val_size"]),
             "--height", str(t["hw"]), "--width", str(t["hw"]), "--batch-size", str(t["batch"]),
         ])
-        check(list(paired) == ["mse", "ssim", "psnr", "perceptual_loss"], f"paired keys {list(paired)}")
-        nr = run_score("T4 score, no reference", ["--raw-dir", str(tree / "raw-890"),
-                                                   "--batch-size", str(t["batch"])])
-        check(nr["images"] == u["pairs"], f"no-reference scored {nr['images']} images")
+        nr = pool.submit(run_score, "T4 score, no reference", ["--raw-dir", str(tree / "raw-890"),
+                                                               "--batch-size", str(t["batch"])])
+        # The engine's bit-for-bit check meanwhile: its bits do not depend
+        # on what else runs.
+        run_t4_exact(torch, dev, card)
+        runs = {"T4 UIEB --data-root": (uieb.result(), u["pairs"], u["val_size"], CLAHE_ONLY, u8_bytes, True),
+                "T4 host-preprocess": (host.result(), h["synthetic"], h["val_size"], NO_LAUNCH, views_bytes,
+                                       False)}
+        paired, nr = paired.result(), nr.result()
+    for tag, ((stats, config, _), pairs, val_size, per_step, nbytes, device_preprocess) in runs.items():
+        check(len(stats) == 1 and config["device_preprocess"] == device_preprocess, f"{tag}: {config}")
+        n_train = pairs - val_size
+        for s in stats:
+            check(s["train_images"] == n_train, f"{tag}: {s['train_images']} train images")
+            check_launches(tag, s, {"train": (per_step, n_train // t["batch"]),
+                                    "val": (per_step, val_size // t["batch"])}, totals)
+            for part, p in (("train", s), ("val", s["val_pipeline"])):
+                check(p["pipeline_transfer_bytes_per_batch"] == nbytes,
+                      f"{tag} {part}: {p['pipeline_transfer_bytes_per_batch']} bytes a batch, want {nbytes}")
+            t4_line(tag, s, card)
+    check(list(paired) == ["mse", "ssim", "psnr", "perceptual_loss"], f"paired keys {list(paired)}")
+    check(nr["images"] == u["pairs"], f"no-reference scored {nr['images']} images")
     return totals
+
+
+def t4_cached_in_process(torch, dev) -> list:
+    """T4's same-call yardstick in this process: the cached raw path
+    (WB/GC/CLAHE in the step, no precache tables) at T4's config through
+    ``TrainingEngine``, as ``python -m waternet_tpu_torch.train
+    --device-cache --no-precache-histeq`` runs it, without a process's
+    start-up. -> one dict an epoch, with the keys of the CLI's
+    ``epoch_stats`` that :func:`t4_line` and :func:`check_launches` read."""
+    from waternet_tpu_torch.data.synthetic import SyntheticPairs, synthetic_split
+    from waternet_tpu_torch.models.vgg import resolve_vgg_params
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.training.trainer import TrainConfig, TrainingEngine
+
+    t = T4
+    cfg = TrainConfig(batch_size=t["batch"], im_height=t["hw"], im_width=t["hw"], precision=t["precision"],
+                      cache_codec="raw", precache_histeq=False, seed=SEED)
+    ds = SyntheticPairs(t["synthetic"], t["hw"], t["hw"], seed=SEED)
+    train_idx, val_idx = synthetic_split(len(ds), t["val_size"])
+    engine = TrainingEngine(cfg, vgg_params=resolve_vgg_params(verbose=False), device=dev)
+    engine.cache_dataset(ds, train_idx)
+    steps = len(train_idx) // t["batch"]
+    stats = []
+    for epoch in range(t["epochs"]):
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train = engine.train_epoch_cached(epoch)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        val = engine.eval_epoch_cached(ds, val_idx)
+        torch.cuda.synchronize()
+        stats.append({
+            "epoch": epoch + 1, "steps": steps, "train_s": train_s, "val_s": time.perf_counter() - t0 - train_s,
+            "train_images_per_s": len(train_idx) / train_s, "step_ms": train_s / steps * 1e3,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), "train": train, "val": val,
+            "val_pipeline": {}, "launches": {"train": train_launches, "val": dict(kernels.LAUNCHES)},
+        })
+    del engine
+    torch.cuda.empty_cache()
+    return stats
 
 
 def run_t4_exact(torch, dev, card) -> None:
@@ -950,7 +1081,7 @@ def run_t5(card) -> dict:
             "--epochs", str(t["epochs"]), "--batch-size", str(t["batch"]), "--height", str(t["hw"]),
             "--width", str(t["hw"]), "--precision", t["precision"], "--device-cache", *extra,
         ])
-        (build,) = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines() if ln.startswith("cache_build ")]
+        (build,) = records(stdout, "cache_build")
         vgg_ref = bool(extra)
         check(build["precache_histeq"] and build["precache_vgg_ref"] == vgg_ref, f"{tag}: {build}")
         want_bytes = codec.estimate_cache_bytes(
@@ -1070,7 +1201,9 @@ BENCH_METRIC = {(): "uieb_train_images_per_sec_per_chip",
                 ("--config", "serve_fleet"): "fleet_images_per_sec",
                 ("--config", "stream"): "video_stream_fps",
                 ("--config", "stream_reuse"): "stream_reuse_fps",
-                ("--config", "obs"): "obs_overhead_pct"}
+                ("--config", "obs"): "obs_overhead_pct",
+                ("--config", "train_chaos"): "chaos_train_images_per_sec",
+                ("--config", "serve_multi"): "mixed_res_dir_images_per_sec_multidev"}
 
 
 def run_bench(card, *args, env=None) -> dict:
@@ -1517,8 +1650,10 @@ def run_resume_cli(torch, card) -> dict:
     --heartbeat-dir, --perf-csv and --profile-dir: uninterrupted, then
     interrupted by ``WATERNET_FAULTS=sigterm@K`` and continued with
     ``--resume auto``. Returns the launches of the interrupted and resumed
-    runs' completed epochs."""
+    runs' completed epochs. The uninterrupted and the interrupted runs go
+    side by side (they share the card; no time of theirs is compared)."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
 
     t = T4
     n_steps = (t["synthetic"] - t["val_size"]) // t["batch"] * t["epochs"]
@@ -1538,13 +1673,15 @@ def run_resume_cli(torch, card) -> dict:
             proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
             wall = time.perf_counter() - t0
             check(proc.returncode == 0, f"R4 {name} CLI failed:\n{proc.stdout}\n{proc.stderr}")
-            stats = [json.loads(ln.split(" ", 1)[1]) for ln in proc.stdout.splitlines()
-                     if ln.startswith("epoch_stats ")]
+            stats = records(proc.stdout, "epoch_stats")
             beat = json.loads((d / name / "hb" / "worker-000.json").read_text())
             return proc.stdout, stats, beat, wall
 
-        out_full, stats_full, beat_full, wall_full = cli("full", d / "full")
-        out_cut, stats_cut, beat_cut, wall_cut = cli("cut", d / "runs", faults_spec=f"sigterm@{RESUME_R4['sigterm']}")
+        with ThreadPoolExecutor(2) as pool:  # the uninterrupted run beside the interrupted one
+            full = pool.submit(cli, "full", d / "full")
+            cut = pool.submit(cli, "cut", d / "runs", faults_spec=f"sigterm@{RESUME_R4['sigterm']}")
+            (out_full, stats_full, beat_full, wall_full), (out_cut, stats_cut, beat_cut, wall_cut) = (
+                full.result(), cut.result())
         out_res, stats_res, beat_res, wall_res = cli("resumed", d / "runs", "--resume", "auto")
         step_full = torch.load(d / "full" / "0" / "state" / "state.pt", weights_only=True)["step"]
         step_res = torch.load(d / "runs" / "1" / "state" / "state.pt", weights_only=True)["step"]
@@ -1579,7 +1716,9 @@ def run_resume_cli(torch, card) -> dict:
     print(json.dumps(line), flush=True)
     check(step_full == n_steps and step_res == step_full, f"R4: steps {step_full} (uninterrupted), "
           f"{step_res} (resumed), want {n_steps}")
-    check((meta["epoch"], meta["batch_index"]) == (1, 4), f"R4: checkpoint at {meta}")
+    per_epoch = n_steps // t["epochs"]
+    want_at = divmod(RESUME_R4["sigterm"], per_epoch)
+    check((meta["epoch"], meta["batch_index"]) == want_at, f"R4: checkpoint at {meta}, want {want_at}")
     check(beat_res["phase"] == "done" and beat_full["phase"] == "done" and beat_cut["phase"] == "preempted",
           f"R4: heartbeats {line['heartbeat_last']}")
     check(len(stats_cut) == 1 and len(stats_res) == 1, f"R4: epochs printed {line['epochs_printed']}")
@@ -2001,7 +2140,8 @@ def run_fast_tier(torch, dev, card) -> dict:
                                               device=dev))
             export_s = time.perf_counter() - t0
             if arch == "can":
-                eager = quant.QuantCAN(quant.quantize_can(params, device=dev), dev) if q else build_student(params, dev)
+                # Host calibration, as the artifact's (export.py).
+                eager = quant.QuantCAN(quant.quantize_can(params, device="cpu"), dev) if q else build_student(params, dev)
             else:
                 eager = build_model(params, dev)
             errs = []
@@ -2016,13 +2156,18 @@ def run_fast_tier(torch, dev, card) -> dict:
             check(max(errs) == 0.0, f"F5 {tag}: artifact differs from the eager forward by {errs}")
     torch.cuda.empty_cache()
 
-    # F6: the bench's fast-tier line and the int8 video arm.
-    tiers = run_bench(card, "--config", "tiers")
+    # F6: the bench's fast-tier line and the int8 video arm, side by side
+    # (they share the card; neither's time is compared).
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        tiers = pool.submit(run_bench, card, "--config", "tiers")
+        # 8 timed calls: the int8 line's ~0.8 s a call is measured, not averaged.
+        video = pool.submit(run_bench, card, "--config", "video",
+                            env={"WATERNET_QUANT": "1", "WATERNET_BENCH_WARMUP": "1", "WATERNET_BENCH_STEPS": "8"})
+        tiers, video = tiers.result(), video.result()
     check(tiers["compiles"] == 2 * len(tiers["buckets"]) and tiers["cold_dispatches"] == 0,
           f"bench tiers: compiles {tiers['compiles']}, cold {tiers['cold_dispatches']}")
-    # 8 timed calls: the int8 line's ~0.8 s a call is measured, not averaged.
-    video = run_bench(card, "--config", "video",
-                      env={"WATERNET_QUANT": "1", "WATERNET_BENCH_WARMUP": "1", "WATERNET_BENCH_STEPS": "8"})
     check(video["quantized"] is True and video["precision"] == "int8", f"bench video int8: {video}")
     return launches
 
@@ -2030,9 +2175,10 @@ def run_fast_tier(torch, dev, card) -> dict:
 
 def calibrated_on_card(torch, dev, card, r3, cpu_q) -> None:
     """F2b: ``InferenceEngine(quantize=True)`` and ``StudentEngine(quantize=
-    True)`` calibrated on the card, against the CPU port's qtrees: each
-    conv's input scale's relative gap, and the answers' level gap at R3.
-    A measurement: its numbers are printed, and no bound is held here."""
+    True)`` built for the card (their calibration runs on the host), against
+    the CPU port's qtrees: every conv's input scale equal, and the answers
+    at R3 within one level; each engine's construction seconds (the host
+    calibration) printed."""
     from waternet_tpu_torch.inference_engine import InferenceEngine, StudentEngine
     from waternet_tpu_torch.models import quant
 
@@ -2045,32 +2191,38 @@ def calibrated_on_card(torch, dev, card, r3, cpu_q) -> None:
         return {"max_abs_diff": int(d.max()), "share_differing": float((d > 0).mean()),
                 "share_over_1": float((d > 1).mean())}
 
-    engines = {"quality": (InferenceEngine(weights=WEIGHTS, device_preprocess=True, device=dev, quantize=True), cpu_q),
-               "student": (StudentEngine(weights=STUDENT, quantize=True, device=dev),
+    def build(make):
+        t0 = time.perf_counter()
+        engine = make()
+        return engine, time.perf_counter() - t0
+
+    engines = {"quality": (*build(lambda: InferenceEngine(weights=WEIGHTS, device_preprocess=True, device=dev,
+                                                          quantize=True)), cpu_q),
+               "student": (*build(lambda: StudentEngine(weights=STUDENT, quantize=True, device=dev)),
                            StudentEngine(weights=STUDENT, quantize=True, device="cpu"))}
-    for name, (on_card, on_cpu) in engines.items():
+    for name, (on_card, build_s, on_cpu) in engines.items():
         gaps = scale_gaps(on_card.params, on_cpu.params)
         worst = max(gaps, key=gaps.get)
-        line = {"run": f"F2b int8 {name} calibrated on the card", "convs": len(gaps),
+        answers = level_gap(on_card.enhance(r3), on_cpu.enhance(r3))
+        line = {"run": f"F2b int8 {name} built for the card, calibrated on the host", "convs": len(gaps),
                 "scales_equal": sum(g == 0.0 for g in gaps.values()), "max_rel_scale_gap": gaps[worst],
-                "worst_layer": worst, "rel_scale_gap": gaps,
-                "answers_vs_cpu_port_R3": level_gap(on_card.enhance(r3), on_cpu.enhance(r3)), "card": card}
+                "worst_layer": worst, "rel_scale_gap": gaps, "engine_build_s": build_s,
+                "answers_vs_cpu_port_R3": answers, "card": card}
         print(json.dumps(line), flush=True)
-        check(all(math.isfinite(g) for g in gaps.values()), f"F2b {name}: scale gaps {gaps}")
-    # What the card's int8 student path moves by itself: the CPU port's
-    # qtree on the card, its int32 accumulators on the same float input.
-    stu_cpu = engines["student"][1]
-    same = StudentEngine(weights=STUDENT, quantize=True, device=dev)
-    same.params, same.model = stu_cpu.params, same._build(stu_cpu.params, dev)
+        check(all(g == 0.0 for g in gaps.values()), f"F2b {name}: scales differ from the CPU port's: {gaps}")
+        check(answers["max_abs_diff"] <= 1, f"F2b {name}: answers {answers['max_abs_diff']} levels from the CPU port's")
+    # The card's int8 student on its own (host-calibrated) qtree: its int32
+    # accumulators against the CPU port's on the same float input.
+    stu_card, _, stu_cpu = engines["student"]
     x = torch.from_numpy(r3).to(torch.float32) / 255.0
     accs_card, accs_cpu = {}, {}
-    quant.QuantCAN(stu_cpu.params, dev, acc_hook=lambda n, a: accs_card.__setitem__(n, a.cpu()))(x.to(dev))
+    quant.QuantCAN(stu_card.params, dev, acc_hook=lambda n, a: accs_card.__setitem__(n, a.cpu()))(x.to(dev))
     quant.QuantCAN(stu_cpu.params, "cpu", acc_hook=accs_cpu.__setitem__)(x)
-    print(json.dumps({"run": "F2b int8 student with the CPU port's qtree on the card", "convs": len(accs_cpu),
-                      "accumulators_unequal": sorted(n for n in accs_cpu if not torch.equal(accs_card[n], accs_cpu[n])),
-                      "answers_vs_cpu_port_R3": level_gap(same.enhance(r3), stu_cpu.enhance(r3)), "card": card}),
-          flush=True)
-    del engines, same
+    unequal = sorted(n for n in accs_cpu if not torch.equal(accs_card[n], accs_cpu[n]))
+    print(json.dumps({"run": "F2b int8 student accumulators, card against the CPU port", "convs": len(accs_cpu),
+                      "accumulators_unequal": unequal, "card": card}), flush=True)
+    check(not unequal, f"F2b: the student's int32 accumulators differ at {unequal}")
+    del engines, stu_card
     torch.cuda.empty_cache()
 
 def run_two_tier(torch, dev, card) -> dict:
@@ -2506,13 +2658,246 @@ def run_streams_fleet(torch, dev, card) -> dict:
                       "card": card}), flush=True)
     print(proc.stdout[:3000], flush=True)
     shutil.rmtree(trace_path.parent, ignore_errors=True)
-    # (h) The bench's stream and fleet lines, at a reduced size.
-    line = run_bench(card, "--config", "stream", env=STREAM_BENCH_ENV)
+    # (h) The bench's stream and fleet lines, at a reduced size, side by
+    # side (they share the card; neither's time is compared).
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        stream = pool.submit(run_bench, card, "--config", "stream", env=STREAM_BENCH_ENV)
+        fleet = pool.submit(run_bench, card, "--config", "serve_fleet", env=FLEET_BENCH_ENV)
+        line, fleet = stream.result(), fleet.result()
     check(line["accounted"] is True and line["cold_dispatches"] == 0, f"bench stream: {line}")
-    line = run_bench(card, "--config", "serve_fleet", env=FLEET_BENCH_ENV)
-    check(line["accounted"] is True and line["byte_identical"] is True and line["recovered"] is True,
-          f"bench serve_fleet: {line}")
+    check(fleet["accounted"] is True and fleet["byte_identical"] is True and fleet["recovered"] is True,
+          f"bench serve_fleet: {fleet}")
     return launches
+
+def multi_requests(torch, card, tag, engines, frames, want_launches, bound, ref_float=None) -> dict:
+    """Phase 15's requests: each ``engines`` entry (name -> engine) answers
+    ``frames`` once with its launches counted from 0 (``want_launches`` of
+    each CLAHE kernel), then 3 timed calls (p50 ms). Answers are held to
+    ``bound(name, uint8, float)`` against the first engine's. Returns the
+    launches of the counted calls."""
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.utils.tensor import ten2arr
+
+    launches, base = {}, None
+    for name, engine in engines.items():
+        engine.enhance(frames)  # warm-up: cuDNN's plans for this shape
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out_f = engine.enhance_async(frames)
+        out = ten2arr(out_f)
+        grew = dict(kernels.LAUNCHES)
+        want = {k: want_launches[name] * int(k in ("tile_lut", "clahe_lut_planes")) for k in grew}
+        check(grew == want, f"M {tag} {name}: launches {grew}, want {want}")
+        launches[name] = grew
+        sec, _ = timed_p50(torch, lambda: engine.enhance(frames), 3)
+        line = {"run": f"M {tag}", "engine": name, "shape": list(frames.shape), "ms_p50": sec * 1e3,
+                "launches": grew, "card": card}
+        if base is None:
+            base = (out, out_f)
+        else:
+            d = np.abs(out.astype(np.int16) - base[0].astype(np.int16))
+            line["vs_first"] = {"max_abs_diff": int(d.max()), "share_over_1": float((d > 1).mean()),
+                                "float_max_abs_diff": (out_f - base[1]).abs().max().item()}
+            bound(name, d, line["vs_first"]["float_max_abs_diff"])
+        print(json.dumps(line), flush=True)
+    return {f"multi_{tag}_{k}": v for k, v in launches.items() if k != next(iter(engines))}
+
+
+def run_multi(torch, dev, card, t1_dir: Path) -> dict:
+    """Phase 15 (M): multi-GPU on one card. Returns the launches of the
+    sharded requests and of the DDP ranks, each counted from 0."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from waternet_tpu_torch.bench import _serving_population
+    from waternet_tpu_torch.inference_engine import InferenceEngine
+    from waternet_tpu_torch.ops import kernels
+    from waternet_tpu_torch.parallel import distributed as pdist
+    from waternet_tpu_torch.serving import RECEPTIVE_RADIUS, DynamicBatcher, derive_buckets
+    from waternet_tpu_torch.utils.synthetic import photo_frames
+
+    rng = np.random.default_rng(SEED + 15)
+    r1 = photo_frames(rng, *REQUESTS["R1"])
+    launches = {}
+
+    # (a) Spatial sharding at R1, n shards sharing the card, fp32 and bf16.
+    def one_level(name, d, fdiff):
+        check(d.max() <= 1 and fdiff <= FAST_ATOL, f"M spatial {name}: {d.max()} levels, float {fdiff}")
+
+    def bf16_levels(name, d, fdiff):
+        check(d.max() <= BF16_LEVELS and (d > 1).mean() <= 0.01, f"M spatial {name}: {d.max()} levels")
+
+    for dtype, bound_fn in ((torch.float32, one_level), (torch.bfloat16, bf16_levels)):
+        tag = "spatial_R1_" + ("fp32" if dtype == torch.float32 else "bf16")
+        engines = {"unsharded": InferenceEngine(weights=WEIGHTS, device_preprocess=True, device=dev, dtype=dtype)}
+        for n in MULTI["spatial"]:
+            engines[f"spatial{n}"] = InferenceEngine(weights=WEIGHTS, device_preprocess=True, dtype=dtype,
+                                                     spatial_shards=n, devices=[dev] * n)
+        launches.update(multi_requests(torch, card, tag, engines, r1,
+                                       dict.fromkeys(engines, 1), bound_fn))
+        del engines
+        torch.cuda.empty_cache()
+
+    # (b) Data sharding, 2 shards on the card, an odd batch (one padded frame).
+    batch = r1[:MULTI["data_batch"]]
+    ds = MULTI["data_shards"]
+    engines = {"unsharded": InferenceEngine(weights=WEIGHTS, device_preprocess=True, device=dev),
+               f"data{ds}": InferenceEngine(weights=WEIGHTS, device_preprocess=True, data_shards=ds,
+                                            devices=[dev] * ds)}
+    launches.update(multi_requests(torch, card, "data_R1_fp32", engines, batch, {"unsharded": 1, f"data{ds}": ds},
+                                   lambda name, d, fdiff: check(d.max() <= 1, f"M data: {d.max()} levels")))
+    del engines
+    torch.cuda.empty_cache()
+
+    # (c) A spatial-2 engine behind the batcher on S's population (fp32,
+    # device preprocessing): the interior (farther than the receptive
+    # radius from the pad seam, which is the native edge in both ladders)
+    # within one level of the unsharded engine's bucketed answers.
+    images, shapes = _serving_population(SERVE["n"], SERVE["base"])
+    ladder = derive_buckets(shapes, max_buckets=SERVE["max_buckets"])
+    answers = {}
+    for name, kw in (("unsharded", {"device": dev}), ("spatial2", {"spatial_shards": 2, "devices": [dev] * 2})):
+        engine = InferenceEngine(weights=WEIGHTS, device_preprocess=True, **kw)
+        batcher = DynamicBatcher(engine, ladder, max_batch=SERVE["max_batch"])
+        try:
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            answers[name] = batcher.map_ordered(images)
+            dt = time.perf_counter() - t0
+            launches[f"multi_batcher_{name}"] = dict(kernels.LAUNCHES)
+            summary = batcher.stats.summary()
+        finally:
+            batcher.close()
+        print(json.dumps({"run": "M batcher", "engine": name, "images_per_s": len(images) / dt,
+                          "buckets": batcher.ladder.describe(), "compiles": summary["compiles"],
+                          "cold_dispatches": engine.cold_dispatches, "launches": launches[f"multi_batcher_{name}"],
+                          "card": card}), flush=True)
+        check(engine.cold_dispatches == 0, f"M batcher {name}: {engine.cold_dispatches} cold dispatches")
+        del engine, batcher
+        torch.cuda.empty_cache()
+    r = RECEPTIVE_RADIUS
+    worst = max(int(np.abs(a[: im.shape[0] - r, : im.shape[1] - r].astype(np.int16)
+                           - b[: im.shape[0] - r, : im.shape[1] - r].astype(np.int16)).max())
+                for a, b, im in zip(answers["spatial2"], answers["unsharded"], images))
+    print(json.dumps({"run": "M batcher, spatial2 vs unsharded interior", "max_abs_diff": worst,
+                      "images": len(images), "card": card}), flush=True)
+    check(all(a.shape == im.shape for a, im in zip(answers["spatial2"], images)), "M batcher: shapes")
+    check(worst <= 1, f"M batcher: spatial2 interior {worst} levels from unsharded")
+
+    # (d) NCCL at world size 1 on the card: init, all_reduce, barrier, destroy.
+    t0 = time.perf_counter()
+    port = free_port()
+    pdist.initialize(f"127.0.0.1:{port}", 1, 0, connect_timeout_sec=60, device=dev)
+    backend = torch.distributed.get_backend()
+    ones = torch.ones(4, device=dev)
+    torch.distributed.all_reduce(ones)
+    torch.distributed.barrier()
+    total = ones.sum().item()
+    pdist.shutdown()
+    print(json.dumps({"run": "M nccl world 1", "backend": backend, "all_reduce_sum": total,
+                      "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+    check(backend == "nccl" and total == 4.0 and not torch.distributed.is_initialized(),
+          f"M nccl: backend {backend}, sum {total}")
+
+    # (e) Two DDP ranks on the card through the supervisor (gloo over CUDA
+    # tensors: NCCL refuses two ranks on one GPU), T1's fp32 config, beside
+    # the train_chaos bench (in process, at an 8 s hang threshold),
+    # bench --config serve_multi and (f) (no time of the four is compared:
+    # they share the card).
+    def chaos_line():
+        from waternet_tpu_torch.bench import bench_train_chaos
+
+        t0 = time.perf_counter()
+        line = bench_train_chaos(dev, hang_sec=MULTI["chaos_hang_sec"])
+        print("bench " + json.dumps(dict(line, card=card)), flush=True)
+        print(json.dumps({"run": "bench train_chaos, in process", "wall_s": time.perf_counter() - t0}), flush=True)
+        return line
+
+    # (f) No silent fallback: spatial shards need that many cards.
+    def refusal(d: Path):
+        import cv2
+
+        src = d / "in"
+        src.mkdir()
+        cv2.imwrite(str(src / "a.png"), r1[0][:64, :64, ::-1])
+        return subprocess.run([sys.executable, "-m", "waternet_tpu_torch.inference", "--source", str(src),
+                               "--weights", WEIGHTS, "--spatial-shards", "2", "--device", dev.type,
+                               "--output-root", str(d / "out")],
+                              cwd=REPO, capture_output=True, text=True, timeout=300)
+
+    with tempfile.TemporaryDirectory() as d, ThreadPoolExecutor(4) as pool:
+        root, hb_dir = Path(d) / "runs", Path(d) / "hb"
+        cmd = [sys.executable, "-m", "waternet_tpu_torch.resilience.supervisor",
+               "--workers", str(MULTI["ddp_workers"]), "--cpu-gloo", "--max-restarts", "0",
+               "--heartbeat-dir", str(hb_dir), "--", "--device", dev.type, "--seed", str(SEED),
+               "--train-root", str(root), *t1_args("fp32")]
+        t0 = time.perf_counter()
+        ddp = pool.submit(subprocess.run, cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
+                          env={k: v for k, v in os.environ.items() if k != "WATERNET_FAULTS"})
+        chaos = pool.submit(chaos_line)
+        multi = pool.submit(run_bench, card, "--config", "serve_multi", env=SERVE_MULTI_BENCH_ENV)
+        refused = pool.submit(refusal, Path(d))
+        proc = ddp.result()
+        ddp_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"M DDP supervisor exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+              f"{proc.stderr[-4000:]}")
+        csvs = {name: (np.loadtxt(root / "0" / name, delimiter=",", skiprows=1, ndmin=2),
+                       np.loadtxt(t1_dir / name, delimiter=",", skiprows=1, ndmin=2))
+                for name in ("metrics-train.csv", "metrics-val.csv")}
+        config = json.loads((root / "0" / "config.json").read_text())
+        report = json.loads((hb_dir / "supervisor-report.json").read_text())
+        line, multi_line, refused = chaos.result(), multi.result(), refused.result()
+    stats = records(proc.stdout, "epoch_stats")
+    finals = {rec["process"]: rec["params_sha256"] for rec in records(proc.stdout, "final_state")}
+    # Records that another rank's unterminated line pushed off a line start.
+    displaced = len(stats) - sum(ln.startswith("epoch_stats {") for ln in proc.stdout.splitlines())
+    totals = {}
+    for s in stats:
+        t1_launches(f"M DDP rank {s['process']}", s, totals)
+    rel = {name: float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-12)))
+           for name, (got, want) in csvs.items()}
+    print(json.dumps({"run": "M DDP, 2 ranks on one card, T1 fp32", "supervisor_s": ddp_s,
+                      "result": report["result"], "restarts": report["restarts"],
+                      "num_processes": config["num_processes"], "params_sha256": finals,
+                      "epoch_records_off_line_start": displaced,
+                      "max_rel_vs_one_process_T1": rel, "epoch_stats": stats, "launches": totals,
+                      "card": card}), flush=True)
+    check(report["result"] == "completed" and config["num_processes"] == MULTI["ddp_workers"],
+          f"M DDP: {report['result']}, {config['num_processes']} processes")
+    check(len(stats) == MULTI["ddp_workers"] * T1["epochs"], f"M DDP: {len(stats)} epoch lines")
+    check(len(finals) == MULTI["ddp_workers"] and len(set(finals.values())) == 1,
+          f"M DDP: the ranks' final parameters differ: {finals}")
+    check(all(r <= MULTI["ddp_rel"] for r in rel.values()), f"M DDP: CSVs rel {rel} from phase 7's T1 fp32")
+    launches["multi_ddp_ranks"] = totals
+    print(json.dumps({"run": "M bench train_chaos", "recovered": line["recovered"], "restarts": line["restarts"],
+                      "exact_resume": line["exact_resume"], "recovery_sec": line["recovery_sec"],
+                      "steps_lost": line["steps_lost"], "card": card}), flush=True)
+    check(line["metric"] == BENCH_METRIC[("--config", "train_chaos")] and math.isfinite(line["value"])
+          and line["value"] > 0, f"M train_chaos: {line}")
+    check(line["recovered"] and line["restarts"] == 2 and line["generations"] == 3,
+          f"M train_chaos: {line}")
+    n_cards = torch.cuda.device_count()
+    check(multi_line["replica_invariant"] is True and multi_line["replicas"] == n_cards
+          and ("note" in multi_line) == (n_cards == 1), f"M serve_multi: {multi_line}")
+    print(json.dumps({"run": "M inference --spatial-shards 2", "cards": n_cards, "returncode": refused.returncode,
+                      "stderr_tail": refused.stderr.strip().splitlines()[-1:], "card": card}), flush=True)
+    if n_cards < 2:
+        check(refused.returncode != 0 and f"only {n_cards} are available" in refused.stderr,
+              f"M: --spatial-shards 2 on {n_cards} card(s) exited {refused.returncode}: {refused.stderr[-500:]}")
+    else:
+        check(refused.returncode == 0, f"M: --spatial-shards 2 on {n_cards} cards failed: {refused.stderr[-500:]}")
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
 
 def main() -> int:
     import torch
@@ -2617,13 +3002,17 @@ def main() -> int:
 
         lut_bytes = n * ty * tx * 256 * 4
         idx_bytes = 2 * (hp + wp) * 4
+        # Yardstick: one bincount of precomputed tile-keyed levels (every
+        # tile's histogram; the clip and scan are left out), keys untimed.
+        keys = tile_keys(torch, l_pad, ty, tx)
+        n_bins = n * ty * tx * 256
         rows = {
             "tile_lut": {
                 "ms": device_ms(torch, lambda: kernels.tile_lut(l_pad, (ty, tx), clip, scale), flush),
                 "plain_ms": device_ms(
                     torch, lambda: kernels.tile_lut_plain(l_pad, (ty, tx), clip, scale), flush
                 ),
-                "library_ms": None,
+                "library_ms": device_ms(torch, lambda: torch.bincount(keys, minlength=n_bins), flush),
                 "bytes": n * hp * wp + lut_bytes,
                 "max_abs_err": err_lut,
             },
@@ -2777,7 +3166,8 @@ def main() -> int:
     lap("6 training kernels")
 
     # 7. Training on the card: each run's launches are counted from 0.
-    launches["train_T1_fp32"] = run_cli_training(torch, card, "fp32")
+    t1_dir = Path(tempfile.mkdtemp(prefix="chip-smoke-t1-"))
+    launches["train_T1_fp32"] = run_cli_training(torch, card, "fp32", keep=t1_dir)
     launches["train_T1_bf16"] = run_cli_training(torch, card, "bf16")
     launches["train_T2_fp32"] = run_t2(torch, dev, card)
     run_t3(torch, dev, card)
@@ -2785,8 +3175,7 @@ def main() -> int:
     lap("7 T1-T3")
 
     # 8. Host-fed training: T4 and its checks.
-    launches["train_T4"] = run_t4(card)
-    run_t4_exact(torch, dev, card)
+    launches["train_T4"] = run_t4(torch, dev, card)
 
     lap("8 T4")
 
@@ -2802,11 +3191,17 @@ def main() -> int:
     launches["video"] = run_video(torch, dev, card, r1_fp32)
     lap("10 V video")
 
-    # 11. R: resume and resilience on the card.
-    launches["resume_R1"] = run_resume_engine(torch, dev, card, "R1")
-    launches["resume_R2"] = run_resume_engine(torch, dev, card, "R2")
-    launches["resume_R3"] = run_resume_nan(torch, dev, card)
-    launches["resume_R4"] = run_resume_cli(torch, card)
+    # 11. R: resume and resilience on the card; R4's CLI processes run
+    # beside R1-R3 (bit for bit on the engine: their bits do not depend on
+    # what else runs, and each process counts its own launches).
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        r4 = pool.submit(run_resume_cli, torch, card)
+        launches["resume_R1"] = run_resume_engine(torch, dev, card, "R1")
+        launches["resume_R2"] = run_resume_engine(torch, dev, card, "R2")
+        launches["resume_R3"] = run_resume_nan(torch, dev, card)
+        launches["resume_R4"] = r4.result()
     lap("11 R resume")
 
     # 12. S: serving.
@@ -2820,6 +3215,11 @@ def main() -> int:
     # 14. St: stream sessions, the fleet, the trace CLI.
     launches.update(run_streams_fleet(torch, dev, card))
     lap("14 St streams, fleet")
+
+    # 15. M: multi-GPU on one card.
+    launches.update(run_multi(torch, dev, card, t1_dir))
+    shutil.rmtree(t1_dir, ignore_errors=True)
+    lap("15 M multi-GPU")
     print(json.dumps({"phase_s": phase_s, "total_s": sum(phase_s.values())}), flush=True)
 
     kernels_line = []

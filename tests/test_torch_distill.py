@@ -153,7 +153,7 @@ def test_distill_guards(pair):
     teacher, _ = pair
     with pytest.raises(ValueError, match="teacher weights"):
         TrainingEngine(_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(ValueError, match="data parallelism only"):
         TrainingEngine(_config(spatial_shards=2), teacher_params=teacher, device="cpu")
     eng = TrainingEngine(_config(precache_vgg_ref=True, perceptual_weight=0.05), teacher_params=teacher, device="cpu")
     with pytest.raises(ValueError, match="incompatible with distill"):

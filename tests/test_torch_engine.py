@@ -218,13 +218,16 @@ import chip_smoke
 for name in ("data.pipeline", "data.uieb", "training.metrics_nr", "score", "data.video",
              "metrics.flicker", "inference", "serving.server", "serving.batcher",
              "serving.replicas", "ops.masked", "models.can", "models.quant", "export",
-             "serving.streams", "serving.fleet", "obs.cli"):
+             "serving.streams", "serving.fleet", "obs.cli", "parallel.mesh", "parallel.spatial",
+             "parallel.distributed", "resilience.supervisor"):
     assert "waternet_tpu_torch." + name in sys.modules, name
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2", "waternet_tpu")
 )
 assert not bad, bad
+from waternet_tpu_torch import export
+assert callable(export.main)  # the export CLI, python -m waternet_tpu_torch.export
 print(len([m for m in sys.modules if m.startswith("waternet_tpu_torch")]))
 """
     proc = subprocess.run(

@@ -7,7 +7,8 @@
     python -m waternet_tpu_torch.bench --config serve_http
     python -m waternet_tpu_torch.bench --config tiers
     python -m waternet_tpu_torch.bench --config stream    # or serve_adaptive, serve_chaos,
-                                                          # serve_fleet, stream_reuse, obs
+                                                          # serve_fleet, stream_reuse, obs,
+                                                          # serve_multi, train_chaos
     WATERNET_QUANT=1 python -m waternet_tpu_torch.bench --config video
     python -m waternet_tpu_torch.bench --device cpu             # a smoke run
 
@@ -99,9 +100,15 @@ drops the pipeline lines), ``WATERNET_BENCH_HOSTFED=0`` and
 ``WATERNET_BENCH_DEVICE_CACHE=0`` drop their lines,
 ``WATERNET_BENCH_HOSTPRE_AB=0`` the host-preprocess arm, and
 ``WATERNET_BENCH_FULLRES_{HW,BATCH,PERCEPTUAL}``. A failing arm is not
-caught: the run exits non-zero without a last line. ``serve_multi`` and
-``train_chaos`` exit with status 2 and the ROADMAP item that
-ports their modules.
+caught: the run exits non-zero without a last line.
+
+``--config serve_multi`` is ``mixed_res_dir_images_per_sec_multidev``
+(the serve population through 1 and N replicas, one a card, byte-checked
+``replica_invariant``; with one card both arms run one replica and a
+``note`` says so), and ``--config train_chaos`` is
+``chaos_train_images_per_sec`` (a supervised 2-process data-parallel
+job through a kill and a hang; each function's docstring says what it
+drives).
 """
 
 from __future__ import annotations
@@ -121,11 +128,9 @@ import torch
 #: batch 16, its host preprocessing included), as the JAX bench divides by.
 BASELINE_IMG_PER_SEC = 12.0
 
-#: The JAX bench's other configs, and the ROADMAP item that ports what they drive.
-UNPORTED = {
-    "serve_multi": "Queue A item 8 (multi-GPU)",
-    "train_chaos": "Queue A items 5 (resilience) and 8 (its supervisor needs multi-GPU)",
-}
+#: The JAX bench's configs the port does not run yet, and the ROADMAP item
+#: that ports what they drive: none is left.
+UNPORTED: dict = {}
 
 
 def _env_int(name: str, default: int) -> int:
@@ -538,6 +543,77 @@ def bench_serving(dev, n_images=None, max_batch=None, max_buckets=None, base_hw=
         "max_batch": max_batch,
         "device_kind": _device_kind(dev),
     }
+
+
+def bench_serving_multi(dev, n_images=None, max_batch=None, max_buckets=None, base_hw=None,
+                        replicas=None) -> dict:
+    """``mixed_res_dir_images_per_sec_multidev``: the serve population
+    through a 1-replica pool and then an N-replica pool on the same ladder
+    and batch size, N = ``torch.cuda.device_count()`` (1 on the CPU;
+    ``WATERNET_BENCH_SERVE_REPLICAS`` overrides), each replica on its own
+    card. The two arms' outputs are byte-compared (``replica_invariant``).
+    With one card both arms run one replica, and ``note`` says so: the
+    line then measures nothing of scale-out."""
+    from waternet_tpu_torch.hub import init_state_dict
+    from waternet_tpu_torch.inference_engine import InferenceEngine
+    from waternet_tpu_torch.serving import DynamicBatcher, derive_buckets
+
+    n_images, max_batch, max_buckets = _serving_env_defaults(n_images, max_batch, max_buckets)
+    base = _env_int("WATERNET_BENCH_HW", 112) if base_hw is None else base_hw
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n_replicas = _env_int("WATERNET_BENCH_SERVE_REPLICAS", n_cards) if replicas is None else replicas
+    if dev.type == "cuda":
+        n_replicas = max(1, min(n_replicas, n_cards))
+    params = init_state_dict(0)
+    images, shapes = _serving_population(n_images, base)
+    ladder = derive_buckets(shapes, max_buckets=max_buckets)
+
+    def run(n_rep):
+        engine = InferenceEngine(params=params, device=dev)
+        t0 = time.perf_counter()
+        batcher = DynamicBatcher(engine, ladder, max_batch=max_batch, replicas=n_rep)
+        warmup_s = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            outs = batcher.map_ordered(images)
+            serve_s = time.perf_counter() - t0
+        finally:
+            batcher.close()
+        if len(outs) != n_images:
+            raise RuntimeError(f"the {n_rep}-replica pool returned {len(outs)} of {n_images} images")
+        return outs, n_images / serve_s, warmup_s, batcher.stats.summary()
+
+    outs_1, ips_1, warmup_1, _ = run(1)
+    outs_n, ips_n, warmup_n, summary = run(n_replicas)
+    line = {
+        "metric": "mixed_res_dir_images_per_sec_multidev",
+        "value": ips_n,
+        "unit": "images/sec",
+        "vs_baseline": None,
+        "replicas": n_replicas,
+        "images_per_sec_1replica": ips_1,
+        "speedup_vs_1_replica": ips_n / ips_1,
+        "replica_invariant": all(np.array_equal(a, b) for a, b in zip(outs_1, outs_n)),
+        "buckets": ladder.describe(),
+        "compiles": summary["compiles"],
+        "batch_occupancy": summary["batch_occupancy"],
+        "padding_overhead": summary["padding_overhead"],
+        "fallback_native_shapes": summary["fallback_native_shapes"],
+        "latency_ms": summary["latency_ms"],
+        "load_imbalance": summary["load_imbalance"],
+        "per_replica": summary["per_replica"],
+        "warmup_sec_1replica": warmup_1,
+        "warmup_sec": warmup_n,
+        "n_images": n_images,
+        "unique_shapes": len(set(shapes)),
+        "max_batch": max_batch,
+        "host_cpus": os.cpu_count(),
+        "device_kind": _device_kind(dev),
+    }
+    if n_replicas == 1:
+        line["note"] = (f"{n_cards} device(s) visible: both arms ran one replica, so this line "
+                        "measures no scale-out; replica_invariant is still byte-checked")
+    return line
 
 
 def bench_serving_http(dev, n_images=None, max_batch=None, max_buckets=None, base_hw=None,
@@ -1322,8 +1398,115 @@ def bench_stream_reuse(dev, max_batch=None, max_buckets=None, base_hw=None, stre
     }
 
 
-#: The streams/fleet/observability configs: the function that prints each
-#: line (its ``metric`` is the JAX bench's contract metric of the config).
+def bench_train_chaos(dev, workers=2, epochs=3, n_images=8, batch=4, hw=32, kill_at=None, hang_at=None,
+                      max_restarts=4, hang_sec=12.0, job_dir=None) -> dict:
+    """``chaos_train_images_per_sec``: a supervised ``workers``-process
+    data-parallel training job (``resilience/supervisor.py``, gloo between
+    the ranks, each on the bench's ``--device``: several ranks share a
+    card) with one worker killed hard (``proc_kill``, generation 0) and one
+    hung without heartbeats (``proc_hang``, generation 1) mid-run, against
+    an unfaulted control job. The value is the job's logical images over
+    the chaos job's wall clock, restarts included; ``recovery_sec`` runs
+    from failure detection to the next generation's first heartbeat,
+    ``steps_lost`` is the work retrained from the last complete checkpoint,
+    and ``exact_resume`` whether the chaos job's CSVs and final weights
+    equal the control's byte for byte. CPU workers run one intra-op thread
+    (two CPU processes may round otherwise); on CUDA, cuDNN's weight
+    gradients are not deterministic, so ``exact_resume`` may read false
+    there. ``WATERNET_BENCH_CHAOS_KILL_AT`` sets the kill's step."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from waternet_tpu_torch.resilience.supervisor import Supervisor, SupervisorConfig
+
+    kill_at = _env_int("WATERNET_BENCH_CHAOS_KILL_AT", 3) if kill_at is None else kill_at
+    hang_at = kill_at + 2 if hang_at is None else hang_at
+    owned = job_dir is None
+    job = Path(tempfile.mkdtemp(prefix="waternet-train-chaos-") if owned else job_dir)
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(repo), env.get("PYTHONPATH")) if p)
+    if dev.type == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+
+    def _run(tag, faults):
+        root = job / tag / "training"
+        argv = [
+            sys.executable, "-m", "waternet_tpu_torch.train", "--device", str(dev),
+            "--synthetic", str(n_images), "--batch-size", str(batch),
+            "--height", str(hw), "--width", str(hw), "--no-perceptual", "--precision", "fp32",
+            "--epochs", str(epochs), "--checkpoint-every", "2", "--workers", "0", "--train-root", str(root),
+        ]
+        cfg = SupervisorConfig(
+            num_workers=workers, max_restarts=max_restarts, backoff_base_sec=0.1, backoff_cap_sec=0.5,
+            late_sec=max(1.0, hang_sec / 3), hang_sec=hang_sec, startup_grace_sec=600.0,
+            drain_grace_sec=10.0, poll_sec=0.05, heartbeat_sec=0.0, cpu_gloo=True,
+        )
+        sup = Supervisor(argv, job / tag / "supervise", cfg, env=env, faults=faults)
+        t0 = time.perf_counter()
+        report = sup.run()
+        return report, time.perf_counter() - t0, root
+
+    def _final_run_dir(root):
+        done = sorted((d for d in root.iterdir() if (d / "metrics-train.csv").is_file()),
+                      key=lambda d: int(d.name)) if root.is_dir() else []
+        return done[-1] if done else None
+
+    try:
+        ctl_report, ctl_s, ctl_root = _run("control", {})
+        chaos_report, chaos_s, chaos_root = _run(
+            "chaos", {(0, 1): f"proc_kill@{kill_at}", (1, 0): f"proc_hang@{hang_at}"})
+        ctl_dir, chaos_dir = _final_run_dir(ctl_root), _final_run_dir(chaos_root)
+        exact = ctl_dir is not None and chaos_dir is not None and all(
+            (ctl_dir / f).read_bytes() == (chaos_dir / f).read_bytes()
+            for f in ("metrics-train.csv", "metrics-val.csv", "last.npz"))
+        gens = chaos_report["generations"]
+
+        def _last(g):
+            return max((w["last_step"] or 0 for w in g["workers"]), default=0)
+
+        def _first(g):
+            vals = [w["first_step"] for w in g["workers"] if w["first_step"]]
+            return min(vals) if vals else None
+
+        steps_lost = sum(max(0, _last(prev) - _first(nxt) + 1)
+                         for prev, nxt in zip(gens, gens[1:]) if _first(nxt) is not None)
+        recovery = chaos_report["recovery_sec"]
+        n_val = max(1, min(90, n_images // 8))
+        logical_images = epochs * (n_images - n_val)
+        return {
+            "metric": "chaos_train_images_per_sec",
+            "value": logical_images / chaos_s if chaos_s else 0.0,
+            "unit": "images/sec",
+            "vs_baseline": None,
+            "workers": workers,
+            "faults": f"proc_kill@{kill_at}(gen0,rank1),proc_hang@{hang_at}(gen1,rank0)",
+            "result": chaos_report["result"],
+            "recovered": chaos_report["result"] == "completed" and ctl_report["result"] == "completed",
+            "restarts": chaos_report["restarts"],
+            "generations": len(gens),
+            "recovery_sec": max(recovery) if recovery else None,
+            "steps_lost": steps_lost,
+            "exact_resume": bool(exact),
+            "control_sec": ctl_s,
+            "chaos_sec": chaos_s,
+            "control_restarts": ctl_report["restarts"],
+            "epochs": epochs,
+            "n_images": n_images,
+            "batch": batch,
+            "hw": [hw, hw],
+            "device_kind": _device_kind(dev),
+        }
+    finally:
+        if owned:
+            shutil.rmtree(job, ignore_errors=True)
+
+
+#: The configs whose one line is one function of the device (streams, the
+#: fleet, observability, multi-device serving, supervised training): the
+#: function that makes each line (its ``metric`` is the JAX bench's contract
+#: metric of the config).
 SERVING_LINES = {
     "serve_adaptive": bench_serve_adaptive,
     "serve_chaos": bench_serving_chaos,
@@ -1331,6 +1514,8 @@ SERVING_LINES = {
     "stream": bench_stream,
     "stream_reuse": bench_stream_reuse,
     "obs": bench_obs,
+    "serve_multi": bench_serving_multi,
+    "train_chaos": bench_train_chaos,
 }
 
 
@@ -1345,8 +1530,9 @@ def main(argv=None) -> int:
                    "door), tiers (the fast tier against the quality tier), serve_adaptive (fixed vs "
                    "adaptive coalescing), serve_chaos (replica faults under load), serve_fleet (the "
                    "fleet router over worker processes under gateway faults), stream (POST /stream "
-                   "sessions), stream_reuse (temporal reuse off vs on) or obs (the observability "
-                   "stack's overhead); serve_multi and train_chaos are not ported yet.")
+                   "sessions), stream_reuse (temporal reuse off vs on), obs (the observability "
+                   "stack's overhead), serve_multi (1 vs N replicas, one a card) or train_chaos (a "
+                   "supervised 2-process training job under a kill and a hang).")
     p.add_argument("--batch-size", type=int, default=4, help="Frames a device batch (--config video).")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'.")
     args = p.parse_args(argv)

@@ -13,7 +13,13 @@ forward: ``(x, wb, ce, gc) -> out`` for WaterNet, ``(x) -> out`` for the
 CAN student (``arch="can"``), all NHWC float32 in [0, 1]; preprocessing
 stays a runtime choice, as in the live API. The int8 variant keeps H and
 W symbolic by taking each convolution's im2col in one piece
-(``models/quant.py``), so its peak memory is the widest layer's im2col.
+(``models/quant.py``), so its peak memory is the widest layer's im2col;
+its scales calibrate on the host, as the engines' do.
+
+As a CLI, with the flags of the JAX package's ``tools/export_model.py``::
+
+    python -m waternet_tpu_torch.export --weights last.npz --out waternet.pt2 \
+        [--quantize] [--arch waternet|can] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -83,13 +89,13 @@ def export_forward(
         sd = student_state_dict(params)
         can_config_from_params(sd)
         if quantize:
-            fn = quant.QuantCAN(quant.quantize_can(sd, calib_batches, device=dev), dev)
+            fn = quant.QuantCAN(quant.quantize_can(sd, calib_batches, device="cpu"), dev)
         else:
             fn = build_student(sd, dev, dtype)
         arity = 1
     else:
         if quantize:
-            fn = quant.QuantWaterNet(quant.quantize_waternet(params, calib_batches, device=dev), dev)
+            fn = quant.QuantWaterNet(quant.quantize_waternet(params, calib_batches, device="cpu"), dev)
         else:
             model = build_model(params, dev)
 
@@ -125,3 +131,42 @@ def load_artifact(path):
             return module(*(torch.as_tensor(a, dtype=torch.float32) for a in args))
 
     return run
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description="Export a checkpoint as a torch.export deployment artifact (.pt2).")
+    p.add_argument("--weights", default=None,
+                   help="checkpoint (.npz or reference .pt); default: the standard resolution order (env, "
+                   "./weights). With --arch can this must be an explicit student checkpoint (a train "
+                   "--distill product)")
+    p.add_argument("--out", default="waternet.pt2")
+    p.add_argument("--quantize", action="store_true",
+                   help="bake the int8 forward (static calibration on synthetic frames; use the library "
+                   "API for custom calibration batches)")
+    p.add_argument("--arch", default="waternet", choices=["waternet", "can"],
+                   help="which tier's model to export: 'waternet' (quality teacher, 4-input forward) or "
+                   "'can' (fast-tier distilled student, single-input; width/depth inferred and validated "
+                   "from the checkpoint)")
+    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu': where the artifact runs.")
+    args = p.parse_args(argv)
+
+    from waternet_tpu_torch.hub import resolve_weights
+
+    if args.arch == "can" and args.weights is None:
+        raise SystemExit("--arch can needs an explicit --weights student checkpoint "
+                         "(the implicit resolution is reserved for the teacher)")
+    params = resolve_weights(args.weights)
+    if params is None:
+        raise SystemExit("no weights found: pass --weights or set WATERNET_TPU_WEIGHTS")
+    path = save_artifact(args.out, params, quantize=args.quantize, arch=args.arch, device=args.device)
+    kind = "int8" if args.quantize else "float"
+    print(f"wrote {kind} {args.arch} artifact: {path} ({path.stat().st_size} bytes)")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

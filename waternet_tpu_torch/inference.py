@@ -34,8 +34,13 @@ half of the output, labelled. ``--quantize`` runs static int8
 ``--tier fast`` serves the distilled CAN student (``--student-weights``;
 raw RGB in, no WB/GC/CLAHE); with ``--serve-url`` the tier travels as
 ``X-Tier``, and ``--allow-downgrade`` opts into the server's brown-out
-downgrades, each reported at the end. Runs on CUDA unless ``--device
-cpu``.
+downgrades, each reported at the end. ``--spatial-shards N`` splits each
+image's height over N cards (the exact halo scheme of
+``parallel/spatial.py``) and ``--data-shards N`` each batch over N cards;
+either needs N visible cards and exits non-zero naming the count
+otherwise (the CPU runs N shards on itself). ``--download`` is accepted
+for the JAX CLI's sake and exits 2: the port fetches nothing over the
+network. Runs on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -65,6 +70,11 @@ def parse_args(argv=None):
     )
     p.add_argument("--name", help="Subfolder name under the output root.")
     p.add_argument(
+        "--download", action="store_true",
+        help="The JAX CLI's fetch of the reference's checkpoint: accepted, and exits 2 (the port "
+        "fetches nothing over the network; place the weights locally).",
+    )
+    p.add_argument(
         "--show-split", action="store_true",
         help="Left/right of the output is original/processed, with before/after labels.",
     )
@@ -86,6 +96,16 @@ def parse_args(argv=None):
         help="The model's compute precision (bf16: autocast over fp32 parameters).",
     )
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'.")
+    p.add_argument(
+        "--spatial-shards", type=int, default=1,
+        help="Split each image's height over N devices with exact halo exchange (for frames too "
+        "large for one card).",
+    )
+    p.add_argument(
+        "--data-shards", type=int, default=1,
+        help="Shard each frame batch over N devices (video throughput scale-out; batches pad to a "
+        "multiple of N, so use a --batch-size that is a multiple of N for full utilization).",
+    )
     p.add_argument(
         "--exact-shapes", action="store_true",
         help="Directory sources: per-shape batching (consecutive same-shaped images) "
@@ -152,9 +172,14 @@ def parse_args(argv=None):
         # none, and ignoring the opt-in silently would mislead.
         p.error("--allow-downgrade is a --serve-url (thin-client) option: brown-out downgrades are "
                 "the server's saturation response")
-    if args.tier == "fast" and args.device_preprocess:
-        p.error("--tier fast is incompatible with --device-preprocess: the student has no "
-                "preprocessing to move")
+    if args.download:
+        p.error("--download fetches the reference's checkpoint over the network, which the port does "
+                "not do: pass --weights, set WATERNET_TPU_WEIGHTS or place the checkpoint in ./weights")
+    if args.spatial_shards < 1 or args.data_shards < 1:
+        p.error("--spatial-shards and --data-shards must be >= 1")
+    if args.tier == "fast" and (args.device_preprocess or args.spatial_shards > 1 or args.data_shards > 1):
+        p.error("--tier fast is incompatible with --device-preprocess/--spatial-shards/--data-shards: "
+                "the student has no preprocessing to move and fits on one card by design")
     return args
 
 
@@ -494,15 +519,22 @@ def main(argv=None):
             calib_batches=raw_calibration_from_sources(files) if args.quantize else None,
         )
     else:
-        engine = InferenceEngine(
-            weights=args.weights,
-            device_preprocess=args.device_preprocess,
-            device=args.device,
-            dtype=dtype,
-            quantize=args.quantize,
-            # Calibrate on the ACTUAL inputs so their activations are not clipped.
-            calib_batches=calibration_from_sources(files) if args.quantize else None,
-        )
+        try:
+            engine = InferenceEngine(
+                weights=args.weights,
+                device_preprocess=args.device_preprocess,
+                device=args.device,
+                dtype=dtype,
+                quantize=args.quantize,
+                # Calibrate on the ACTUAL inputs so their activations are not clipped.
+                calib_batches=calibration_from_sources(files) if args.quantize else None,
+                spatial_shards=args.spatial_shards,
+                data_shards=args.data_shards,
+            )
+        except ValueError as e:
+            if not (args.spatial_shards > 1 or args.data_shards > 1):
+                raise
+            raise SystemExit(f"--spatial-shards {args.spatial_shards} --data-shards {args.data_shards}: {e}")
     savedir = next_run_dir(Path(args.output_root), args.name)
     if images:
         if source.is_dir() and not args.exact_shapes:

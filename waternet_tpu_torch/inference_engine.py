@@ -34,7 +34,18 @@ off: autotuning may pick another algorithm in another process.
 ``quantize=True`` converts the checkpoint to static int8 at construction
 (:mod:`waternet_tpu_torch.models.quant`: exact int8 x int8 -> int32
 convolutions through ``torch._int_mm``); the activation scales calibrate
-on ``calib_batches`` or on synthetic frames.
+on ``calib_batches`` or on synthetic frames, always on the host, so an
+engine on the card holds the CPU port's qtree bit for bit (a calibration
+forward on the card rounds other activations and moves the scales).
+
+``spatial_shards`` and ``data_shards`` (the JAX engine's, mutually
+exclusive) run the quality engine over a mesh of ``devices``
+(:mod:`waternet_tpu_torch.parallel`): spatial sharding splits each image's
+height with the exact halo scheme of ``parallel/spatial.py`` after
+preprocessing the whole image once on the first device; data sharding
+splits the frame batch, padded with its last frame to a multiple of the
+shard count and cropped back, with a model replica and the preprocessing
+on each shard's device. Both compose with ``quantize`` and ``dtype``.
 
 :class:`StudentEngine` is the fast tier: the distilled CAN student
 (``models/can.py``), raw uint8 frames in, enhanced uint8 frames out, with
@@ -68,6 +79,8 @@ class _ServingEngineBase:
     ``params`` and ``model`` and provides ``_build(params, device)``,
     ``enhance_async`` and ``enhance_padded_async``."""
 
+    data_shards = 1
+    spatial_shards = 1
     device_preprocess = False
     quantized = False
 
@@ -102,6 +115,11 @@ class _ServingEngineBase:
         growth across a call is the number of shapes first met there)."""
         with self._keys_lock:
             return len(self._seen)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the engine's forward spans a mesh of devices."""
+        return self.spatial_shards > 1 or self.data_shards > 1
 
     def _dev(self, device) -> torch.device:
         return self.device if device is None else torch.device(device)
@@ -192,6 +210,9 @@ class InferenceEngine(_ServingEngineBase):
         dtype: torch.dtype = torch.float32,
         quantize: bool = False,
         calib_batches=None,
+        spatial_shards: int = 1,
+        data_shards: int = 1,
+        devices=None,
     ):
         """``weights``: a ``.npz`` (JAX format) or ``.pt`` (reference
         state_dict) path, else the implicit resolution of
@@ -204,8 +225,18 @@ class InferenceEngine(_ServingEngineBase):
         model's compute dtype, ``torch.float32`` or ``torch.bfloat16`` (a
         quantized engine runs its int8 convolutions and float32 between
         them). ``quantize=True`` converts the checkpoint to static int8,
-        calibrated on ``calib_batches`` ((x, wb, he, gc) float tuples) or on
-        synthetic frames, on ``device``."""
+        calibrated on the host on ``calib_batches`` ((x, wb, he, gc) float
+        tuples) or on synthetic frames.
+
+        ``spatial_shards > 1`` splits each image's height over that many
+        devices (H divisible by it, slabs of at least 26 rows);
+        ``data_shards > 1`` splits each frame batch over that many. The two
+        are mutually exclusive. ``devices``: the mesh's devices (may repeat
+        one: the rehearsal layout); by default the first N CUDA devices
+        (raising if there are fewer), or N times the CPU for a CPU
+        engine. The engine's ``device`` is then the mesh's first."""
+        if devices is not None and (spatial_shards > 1 or data_shards > 1):
+            device = devices[0]
         self.device = resolve_device(device)
         self.dtype = check_dtype(dtype)
         if calib_batches is not None and not quantize:
@@ -213,6 +244,21 @@ class InferenceEngine(_ServingEngineBase):
                 "calib_batches given without quantize=True: the calibration "
                 "data would be silently dropped"
             )
+        if data_shards > 1 and spatial_shards > 1:
+            raise ValueError(
+                "data_shards and spatial_shards are mutually exclusive for "
+                "now; pick batch scale-out OR single-frame decomposition"
+            )
+        self.spatial_shards = int(spatial_shards)
+        self.data_shards = int(data_shards)
+        self.mesh = None
+        if self.sharded:
+            from waternet_tpu_torch.parallel.mesh import make_mesh
+
+            if devices is None and self.device.type == "cpu":
+                devices = [self.device] * (self.spatial_shards * self.data_shards)
+            self.mesh = make_mesh(self.data_shards, self.spatial_shards, devices)
+            self.device = resolve_device(self.mesh.devices[0, 0])
         if params is None:
             params = resolve_weights(weights)
         if params is None:
@@ -231,49 +277,106 @@ class InferenceEngine(_ServingEngineBase):
         self._init_keys()
 
     def _quantize(self, params: dict) -> dict:
-        return quant.quantize_waternet(params, self._calib, device=self.device)
+        return quant.quantize_waternet(params, self._calib, device="cpu")
 
-    def _build(self, params, device):
+    def _build_one(self, params, device):
         if self.quantized:
             return quant.QuantWaterNet(params, device)
         return build_model(params, device)
 
+    def _build(self, params, device):
+        """The forward on ``device``; a sharded engine's (asked for its own
+        device) spans its mesh: one replica per distinct device, run
+        through the spatial halo scheme, or, data-sharded, the list of
+        ``(device, model)`` per data shard that :meth:`_shard_parts`
+        splits a batch over."""
+        if not self.sharded or torch.device(device) != self.device:
+            return self._build_one(params, device)
+        from waternet_tpu_torch.parallel.spatial import spatial_sharded_apply
+
+        replicas = {}
+        for d in self.mesh.devices.ravel():
+            if d not in replicas:
+                replicas[d] = self._build_one(params, d)
+        if self.spatial_shards > 1:
+            return spatial_sharded_apply(replicas, self.mesh)
+        return [(d, replicas[d]) for d in self.mesh.data_devices()]
+
     def forward(self, x, wb, he, gc) -> torch.Tensor:
         """The model on four float [0, 1] NHWC batches, in the engine's
-        dtype; returns float32."""
-        return self._run(self.model, x, wb, he, gc)
+        dtype; returns float32 on the engine's device."""
+        return self._gather([self._run(m, *(p.to(d) for p in parts))
+                             for d, m, parts in self._shard_parts(self.model, self.device, x, wb, he, gc)])
 
     def _run(self, model, x, wb, he, gc) -> torch.Tensor:
         if self.quantized:
             return model(x, wb, he, gc)
         return run_model(model, self.dtype, x, wb, he, gc)
 
+    def _check_height(self, h: int) -> None:
+        """Spatial shards need H divisible into slabs of at least 26 rows."""
+        if self.spatial_shards > 1:
+            from waternet_tpu_torch.parallel.spatial import check_slab
+
+            check_slab(h, self.spatial_shards)
+
+    def _pad_for_shards(self, rgb_batch):
+        """-> (padded_batch, n_real). Shards need equal batch slices, so a
+        batch that is not a multiple of data_shards is padded by repeating
+        the last frame."""
+        n = len(rgb_batch)
+        if self.data_shards <= 1 or n % self.data_shards == 0:
+            return rgb_batch, n
+        from waternet_tpu_torch.parallel.mesh import pad_to_multiple
+
+        return pad_to_multiple(np.asarray(rgb_batch), self.data_shards)
+
+    @staticmethod
+    def _shard_parts(model, device, *tensors, dim: int = 0):
+        """[(device, model, per-shard pieces)] of a batch (its frames along
+        ``dim``): one part per data shard of a data-sharded forward (a
+        ``(device, model)`` list), or the whole batch on ``device``."""
+        if isinstance(model, list):
+            chunks = [t.chunk(len(model), dim=dim) for t in tensors]
+            return [(d, m, [c[i] for c in chunks]) for i, (d, m) in enumerate(model)]
+        return [(device, model, list(tensors))]
+
+    def _gather(self, outs) -> torch.Tensor:
+        return outs[0] if len(outs) == 1 else torch.cat([o.to(self.device) for o in outs])
+
     @torch.inference_mode()
     def enhance_async(self, rgb_batch) -> torch.Tensor:
         """Enqueue the enhancement and return the (N, H, W, 3) float32
         result tensor on the engine's device, without waiting for it (CUDA
         runs asynchronously); :func:`~waternet_tpu_torch.utils.tensor.
-        ten2arr` waits and converts."""
+        ten2arr` waits and converts. A data-sharded engine preprocesses
+        and runs each shard on its own device; a spatially sharded one
+        preprocesses the whole batch on its first device."""
         if len(rgb_batch) == 0:
             raise ValueError(
                 "enhance_async got an empty batch: enhancement needs at "
                 "least one (H, W, 3) frame"
             )
+        self._check_height(np.shape(rgb_batch)[1])
+        rgb_batch, n_real = self._pad_for_shards(rgb_batch)
         self._note_shape(("native", tuple(np.shape(rgb_batch)), self.device), padded=False)
         model = self.model  # one read: a reload swaps the attribute whole
         if self.device_preprocess:
             rgb = torch.as_tensor(np.ascontiguousarray(rgb_batch, dtype=np.uint8))
-            rgb = to_device(rgb, self.device)
-            wb, gc, he = transform_batch(rgb)
-            x = rgb.to(torch.float32) / 255.0
-            return self._run(model, x, wb / 255.0, he / 255.0, gc / 255.0)
+            outs = []
+            for dev, m, (part,) in self._shard_parts(model, self.device, rgb):
+                part = to_device(part, dev)
+                wb, gc, he = transform_batch(part)
+                x = part.to(torch.float32) / 255.0
+                outs.append(self._run(m, x, wb / 255.0, he / 255.0, gc / 255.0))
+            return self._gather(outs)[:n_real]
         wb, gc, he = zip(*(transform_np(np.asarray(f)) for f in rgb_batch))
-
-        def to_dev(arrs):
-            t = to_device(torch.from_numpy(np.stack(arrs)), self.device)
-            return t.to(torch.float32) / 255.0
-
-        return self._run(model, to_dev(list(rgb_batch)), to_dev(wb), to_dev(he), to_dev(gc))
+        host = torch.from_numpy(np.stack([np.stack(a) for a in (list(rgb_batch), wb, he, gc)]))
+        outs = []
+        for dev, m, (part,) in self._shard_parts(model, self.device, host, dim=1):
+            planes = to_device(part.contiguous(), dev).to(torch.float32) / 255.0
+            outs.append(self._run(m, *planes.unbind(0)))
+        return self._gather(outs)[:n_real]
 
     # ------------------------------------------------------------------
     # The padded entry points: the shape-bucketed serving path
@@ -290,6 +393,12 @@ class InferenceEngine(_ServingEngineBase):
         is then reflect-padded bottom/right to ``bucket_hw``, the batch
         padded to ``n_slots`` by repeating the last image, and the four
         uint8 batches go up in one pinned, non-blocking copy."""
+        host = self._padded_host_planes(images, bucket_hw, n_slots)
+        planes = to_device(torch.from_numpy(host), self._dev(device)).to(torch.float32) / 255.0
+        return tuple(planes.unbind(0))
+
+    def _padded_host_planes(self, images, bucket_hw, n_slots) -> np.ndarray:
+        """The (4, N, bh, bw, 3) uint8 host planes of :meth:`preprocess_padded`."""
         from waternet_tpu_torch.serving.bucketing import pad_to_bucket
 
         if not images:
@@ -308,9 +417,7 @@ class InferenceEngine(_ServingEngineBase):
                     f"{len(quads)} images exceed the warmed batch of {n_slots} slots"
                 )
             quads.extend([quads[-1]] * (n_slots - len(quads)))
-        host = np.stack([np.stack(arrs) for arrs in zip(*quads)])  # (4, N, bh, bw, 3)
-        planes = to_device(torch.from_numpy(host), self._dev(device)).to(torch.float32) / 255.0
-        return tuple(planes.unbind(0))
+        return np.stack([np.stack(arrs) for arrs in zip(*quads)])
 
     @torch.inference_mode()
     def enhance_padded_async(self, images, bucket_hw, n_slots=None, params=None, device=None):
@@ -320,27 +427,45 @@ class InferenceEngine(_ServingEngineBase):
 
         ``params`` is a :meth:`replica_params` model and ``device`` its
         device (a serving replica's placement); by default the engine's own.
-        Host-preprocess engines run :meth:`preprocess_padded`, then the
-        forward; device-preprocess engines upload the raw canvases and
+        Host-preprocess engines upload :meth:`preprocess_padded`'s planes,
+        then run the forward; device-preprocess engines upload the raw canvases and
         their native shapes, run :func:`~waternet_tpu_torch.ops.masked.
         transform_masked_batch`, then the forward (the JAX engine's
         ``_fused_padded``). The bf16 engine's dtype applies to the forward
-        only."""
+        only. A sharded engine serves as one replica spanning its mesh
+        (``device`` None): a data-sharded one preprocesses each shard on
+        its own device (the slot count must divide evenly)."""
         from waternet_tpu_torch.ops.masked import transform_masked_batch
 
         dev = self._dev(device)
         model = self.model if params is None else params
         bh, bw = bucket_hw
         n = len(images) if n_slots is None else n_slots
+        if self.sharded:
+            if device is not None and torch.device(device) != self.device:
+                raise ValueError(
+                    "per-device serving calls are for unsharded engines; a "
+                    "sharded engine's forward spans its mesh already"
+                )
+            if n % self.data_shards:
+                raise ValueError(f"{n} slots do not split over data_shards={self.data_shards}")
+            self._check_height(bh)
         self._note_shape(("padded", (n, bh, bw, 3), dev), padded=True)
+        outs = []
         if self.device_preprocess:
             canvas, hw = self.pad_raw_to_bucket(images, bucket_hw, n_slots)
-            rgb = to_device(torch.from_numpy(canvas), dev)
-            wb, gc, he = transform_masked_batch(rgb, to_device(torch.from_numpy(hw), dev))
-            x = rgb.to(torch.float32) / 255.0
-            return self._run(model, x, wb / 255.0, he / 255.0, gc / 255.0)
-        x, wb, he, gc = self.preprocess_padded(images, bucket_hw, n_slots, device=dev)
-        return self._run(model, x, wb, he, gc)
+            for d, m, (part, part_hw) in self._shard_parts(model, dev, torch.from_numpy(canvas),
+                                                           torch.from_numpy(hw)):
+                rgb = to_device(part, d)
+                wb, gc, he = transform_masked_batch(rgb, to_device(part_hw, d))
+                x = rgb.to(torch.float32) / 255.0
+                outs.append(self._run(m, x, wb / 255.0, he / 255.0, gc / 255.0))
+            return self._gather(outs)
+        host = torch.from_numpy(self._padded_host_planes(images, bucket_hw, n_slots))
+        for d, m, (part,) in self._shard_parts(model, dev, host, dim=1):
+            planes = to_device(part.contiguous(), d).to(torch.float32) / 255.0
+            outs.append(self._run(m, *planes.unbind(0)))
+        return self._gather(outs)
 
 
 class StudentEngine(_ServingEngineBase):
@@ -398,7 +523,7 @@ class StudentEngine(_ServingEngineBase):
     def _quantize(self, params: dict) -> dict:
         from waternet_tpu_torch.models.can import student_state_dict
 
-        return quant.quantize_can(student_state_dict(params), self._calib, device=self.device)
+        return quant.quantize_can(student_state_dict(params), self._calib, device="cpu")
 
     def _build(self, params, device):
         from waternet_tpu_torch.models.can import build_student

@@ -19,10 +19,11 @@ pipelines:
   (``WATERNET_FAULTS`` or programmatic plans), parsing the same specs as
   the JAX package's;
 * :mod:`heartbeat` — step-boundary liveness records and the per-worker
-  health state machine (:class:`HeartbeatWriter`, :class:`WorkerHealth`).
-
-The JAX package's gang supervisor (``resilience/supervisor.py``) comes
-with multi-GPU training (ROADMAP Queue A item 8).
+  health state machine (:class:`HeartbeatWriter`, :class:`WorkerHealth`);
+* :mod:`supervisor` — the gang supervisor of multi-process training
+  (``python -m waternet_tpu_torch.resilience.supervisor``): spawns the
+  workers with the ``WATERNET_*`` env contract, restarts the gang from
+  the last complete checkpoint after a crash or a hang.
 """
 
 from waternet_tpu_torch.resilience.control import EpochControl

@@ -5,11 +5,11 @@ The JAX package's ``resilience/faults.py``, lifted whole so that a
 the ``nan`` hook touches the model, here torch parameters. The port's
 serving layer (``waternet_tpu_torch/serving/``) calls the replica and
 front-door hooks (``slow_replica``, ``replica_crash``, ``replica_hang``,
-``nan_output``, ``reject_admit``, ``gateway_crash``, ``gateway_hang``);
-the stream kinds parse and count, but the port's stream sessions are
-ROADMAP Queue A item 6's next part, and no supervisor reaps
-``proc_kill``/``proc_hang`` yet (item 8); the module paths named for
-those below are the JAX package's.
+``nan_output``, ``reject_admit``, ``gateway_crash``, ``gateway_hang``),
+the stream sessions (``serving/streams.py``) the stream kinds, and the
+train CLI's workers ``proc_kill``/``proc_hang``, which the gang
+supervisor (``resilience/supervisor.py``) reaps; the module paths named
+below are the JAX package's.
 
 Real preemptions, NaN steps, and corrupt files are rare and nondeterministic;
 this harness makes each one a reproducible event so tests (and operators

@@ -4,9 +4,9 @@ raw images with no reference.
     python -m waternet_tpu_torch.score --weights last.npz --data-root data
     python -m waternet_tpu_torch.score --weights last.npz --raw-dir challenging-60/
 
-The port of the JAX package's ``score.py``, with its flags (but for the
-reference's ``--epochs`` and ``--seed``, which that scorer accepts and
-ignores) and its metric dict, key for key:
+The port of the JAX package's ``score.py``, with its flags and its metric
+dict, key for key (``--epochs`` and ``--seed`` are accepted and ignored,
+as that scorer does, with its warning for a seed other than 0):
 
 * **paired** (default): the reference's seed-0 split of the pairs under
   ``--data-root`` (``--split val|train|all``), scored by the training
@@ -60,6 +60,13 @@ def parse_args(argv=None):
     p.add_argument("--bug-compat-perceptual", action="store_true",
                    help="Reproduce the reference's perceptual_loss accumulation bug.")
     p.add_argument("--json-out", help="Also write the metrics to this JSON file.")
+    p.add_argument("--epochs", type=int, default=None,
+                   help="(Compat) accepted and ignored: the reference scorer inherited this flag from "
+                   "train.py and never uses it.")
+    p.add_argument("--seed", type=int, default=None,
+                   help="(Compat) in the reference, a non-None seed reseeds torch's global RNG before "
+                   "random_split, silently changing WHICH 90 images count as val; this scorer always "
+                   "evaluates the canonical seed-0 split and warns if a different seed is requested.")
     p.add_argument("--raw-dir",
                    help="Score a directory of raw images with no references by UCIQE/UIQM, before and after "
                    "enhancement, at native resolution (images batched by shape).")
@@ -164,6 +171,16 @@ def _eval_bug_compat(engine, dataset, indices, batch_size: int) -> dict:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.seed not in (None, 0):
+        import warnings
+
+        warnings.warn(
+            f"--seed {args.seed} is accepted for reference CLI compatibility "
+            "only: this scorer always evaluates the canonical seed-0 split "
+            "(the reference would have moved images between train and val).",
+            RuntimeWarning,
+            stacklevel=1,
+        )
     t0 = time.perf_counter()
     from waternet_tpu_torch.utils.device import resolve_device
 

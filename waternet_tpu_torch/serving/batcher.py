@@ -211,6 +211,11 @@ class DynamicBatcher:
         self._default_tier = tier_name
         self.engine = engine
         self.max_batch = int(max_batch)
+        data_shards = engine.data_shards
+        if self.max_batch % data_shards:
+            # The warmed batch shape is fixed, and a data-sharded engine
+            # needs equal per-shard slices: round the slot count up.
+            self.max_batch += data_shards - self.max_batch % data_shards
         self.ladder = ladder = fit_ladder_to_engine(ladder, engine)
         self.max_wait_s = float(max_wait_ms) / 1e3
         # Effective-window authority: fixed mode returns the cap from
@@ -759,17 +764,22 @@ class ExactShapeBatcher:
 def fit_ladder_to_engine(ladder: BucketLadder, engine) -> BucketLadder:
     """Round a ladder's bucket heights up to what the engine can serve.
 
-    The JAX package's spatially sharded engines need every bucket height
-    a multiple of the shard count; the port's engines are unsharded
-    (``--spatial-shards`` is ROADMAP Queue A item 8), so the ladder passes
-    through unchanged, and a sharded engine raises."""
-    shards = getattr(engine, "spatial_shards", 1)
-    if shards > 1:
-        raise ValueError(
-            f"spatial_shards={shards}: sharded engines are ROADMAP Queue A "
-            "item 8 (multi-GPU) in the port"
-        )
-    return ladder
+    Spatially sharded engines split H over ``spatial_shards`` devices and
+    need every slab to hold at least ``2 * HALO`` rows, so each bucket
+    height rounds up to the next multiple of the shard count with a
+    ``2 * HALO * shards`` floor; rounding *up* keeps every shape the
+    original ladder covered. Unsharded engines (and batch-sharded ones,
+    whose constraint is on the slot count, not the canvas) pass through
+    untouched."""
+    shards = engine.spatial_shards
+    if shards <= 1:
+        return ladder
+    from waternet_tpu_torch.parallel.spatial import HALO
+
+    min_h = 2 * HALO * shards
+    return BucketLadder(
+        {(max(-(-bh // shards) * shards, min_h), bw) for bh, bw in ladder}
+    )
 
 
 def resolve_ladder(

@@ -206,10 +206,15 @@ def resolve_replicas(spec, engine=None) -> int:
     On CUDA, ``auto`` (and None/empty) means every visible card
     (``torch.cuda.device_count()``), and an N above that raises. A CPU
     engine resolves ``auto`` to 1 and may run any N, every replica on
-    ``torch.device("cpu")`` (the CPU tests' multi-replica pools)."""
+    ``torch.device("cpu")`` (the CPU tests' multi-replica pools). Sharded
+    engines resolve ``auto`` to 1 (their one forward already spans the
+    mesh) and refuse an explicit N above 1."""
     cuda = engine is not None and _cuda_engine(engine)
+    sharded = engine is not None and engine.sharded
     text = "auto" if spec is None else str(spec).strip().lower()
     if text in ("", "auto"):
+        if sharded:
+            return 1
         return max(1, torch.cuda.device_count()) if cuda else 1
     try:
         n = int(text)
@@ -224,6 +229,12 @@ def resolve_replicas(spec, engine=None) -> int:
         raise ValueError(
             f"--serve-replicas {n} exceeds the {torch.cuda.device_count()} "
             "CUDA device(s)"
+        )
+    if sharded and n != 1:
+        raise ValueError(
+            f"--serve-replicas {n} conflicts with a sharded engine "
+            f"(data_shards={engine.data_shards}, spatial_shards={engine.spatial_shards}): "
+            "its forward spans its mesh as ONE replica"
         )
     return n
 
@@ -580,6 +591,12 @@ class ReplicaPool:
             )
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+        if engine.sharded and n_replicas != 1:
+            raise ValueError(
+                "sharded engines serve as ONE replica spanning their mesh; "
+                f"got n_replicas={n_replicas} with data_shards={engine.data_shards}, "
+                f"spatial_shards={engine.spatial_shards}"
+            )
         if _cuda_engine(engine):
             devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
             if n_replicas > len(devices):

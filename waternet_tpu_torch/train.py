@@ -33,7 +33,9 @@ synchronised at the epoch's end), peak device memory, each kernel's
 launches in the train and val passes and, host-fed, the ``pipeline_*``
 keys (stall pct, per-stage ms, transfer bytes per batch). With
 ``--device-cache`` a ``cache_build {...}`` JSON line comes first: the
-build's seconds, resident bytes and kernel launches.
+build's seconds, resident bytes and kernel launches. The last JSON line,
+``final_state {...}``, names the process and the SHA-256 of its final
+parameters.
 
 Fault tolerance, as in the JAX CLI: every epoch writes ``state/`` (the
 full train state: parameters, Adam moments, the schedule's position, the
@@ -59,6 +61,21 @@ reads no JAX Orbax state: JAX state crosses over through
 ``--teacher-weights``: the teacher runs in the step on the WB/GC/CLAHE
 planes, its output replaces the reference in every loss and metric, and
 ``last.npz`` is the student (what ``--student-weights`` serves).
+
+Multi-GPU, as the JAX CLI: ``--spatial-shards N`` splits each image's
+height over the process's N devices (``parallel/spatial.py``). Under the
+supervisor (``python -m waternet_tpu_torch.resilience.supervisor``) the
+``WATERNET_*`` env contract joins the process to a ``torch.distributed``
+group (``parallel/distributed.py``; NCCL on CUDA, gloo on the CPU or
+under ``WATERNET_CPU_GLOO``) and each process trains one data shard under
+``DistributedDataParallel``, on its own card (process r owns cards ``[r*N,
+(r+1)*N)``). Only process 0 writes the CSVs, the weights, the
+checkpoints, ``config.json`` (with ``num_processes`` and
+``restart_generation``) and TensorBoard; every process heartbeats. A
+time-based ``--checkpoint-every`` is refused multi-process (the clocks
+differ, the save point must not). ``--tensorboard`` writes the JAX CLI's
+scalars (``train/<k>``, ``val/<k>``, ``perf/images_per_sec`` at step =
+epoch) to ``<run>/tb`` through ``torch.utils.tensorboard``.
 
 Runs on CUDA unless ``--device cpu`` is given.
 """
@@ -89,6 +106,10 @@ def parse_args(argv=None):
     p.add_argument("--val-size", type=int, default=90, help="Validation split size (default 90).")
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"],
                    help="Model/VGG compute dtype; parameters stay fp32 (default bf16).")
+    p.add_argument("--spatial-shards", type=int, default=1,
+                   help="Shard image height over N devices during training (for resolutions whose "
+                   "activations exceed one card); this process's N cards, or N shares of one card under "
+                   "WATERNET_CPU_GLOO.")
     p.add_argument("--vgg-weights", help="VGG19 weights for the perceptual loss (.npz JAX layout, or torchvision .pt).")
     p.add_argument("--no-perceptual", action="store_true", help="Drop the VGG perceptual term.")
     p.add_argument("--data-root", default="data", help="UIEB root holding raw-890/ and reference-890/ (default data).")
@@ -157,13 +178,20 @@ def parse_args(argv=None):
     p.add_argument("--student-depth", type=int, default=7,
                    help="--distill: CAN student 3x3 stage count (default 7; dilations 1,2,...,2^(depth-2),1).")
     p.add_argument("--tensorboard", action="store_true",
-                   help="Not ported yet (ROADMAP Queue A item 9): exits 2.")
+                   help="Write the epoch scalars (train/<k>, val/<k>, perf/images_per_sec at step = epoch) to "
+                   "<run>/tb with torch.utils.tensorboard (needs the tensorboard package).")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'.")
     args = p.parse_args(argv)
     if args.tensorboard:
-        p.error("--tensorboard is not ported to waternet_tpu_torch yet (ROADMAP Queue A item 9): the JAX CLI "
-                "writes its scalars with tensorflow, and neither tensorflow nor tensorboard is installed beside the "
-                "port")
+        try:
+            import tensorboard  # noqa: F401 - torch.utils.tensorboard writes through it
+        except ImportError:
+            p.error("--tensorboard needs the 'tensorboard' package, which is not importable here")
+    if args.spatial_shards < 1:
+        p.error("--spatial-shards must be >= 1")
+    if args.distill and args.spatial_shards > 1:
+        p.error("--distill supports data parallelism only for now (the student's dilated convs would need "
+                "64-row spatial halos)")
     if args.device_preprocess and args.host_preprocess:
         p.error(
             "--device-preprocess and --host-preprocess are mutually exclusive (device "
@@ -230,12 +258,32 @@ def main(argv=None) -> int:
         TrainingEngine,
         vgg_ref_bytes_per_item,
     )
+    from waternet_tpu_torch.parallel import distributed as pdist
     from waternet_tpu_torch.utils import rundir
     from waternet_tpu_torch.utils.checkpoint import save_weights
     from waternet_tpu_torch.utils.device import resolve_device
 
-    dev = resolve_device(args.device)
+    # Multi-process bootstrap from the supervisor's env contract; a no-op
+    # for a process on its own.
+    multi = pdist.initialize(device=args.device)
+    rank, world, gen = pdist.process_index(), pdist.process_count(), pdist.generation()
+    writer = rank == 0  # the one process that writes the run's files
+    if args.every_secs and world > 1:
+        raise SystemExit(
+            "time-based --checkpoint-every is not multi-process safe (process clocks differ, but every "
+            "process must stop at the same step); use a step count"
+        )
+    try:
+        devices = pdist.process_devices(args.device, args.spatial_shards, rank)
+    except ValueError as e:
+        raise SystemExit(f"--spatial-shards {args.spatial_shards}: {e}")
+    dev = resolve_device(devices[0])
     cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    if multi:
+        print(f"Multi-process: process {rank}/{world} (generation {gen}) on {[str(d) for d in devices]}",
+              flush=True)
 
     def sync():
         if cuda:
@@ -246,7 +294,7 @@ def main(argv=None) -> int:
     faults.install_from_env()
     # Liveness records (--heartbeat-dir or WATERNET_HEARTBEAT_DIR); the
     # startup beat comes before the data and the model are set up.
-    heartbeat = HeartbeatWriter.resolve(args.heartbeat_dir)
+    heartbeat = HeartbeatWriter.resolve(args.heartbeat_dir, process_id=rank, generation=gen)
     if heartbeat is not None:
         heartbeat.beat(step=0, phase="startup", force=True)
 
@@ -267,6 +315,7 @@ def main(argv=None) -> int:
         distill=args.distill,
         student_width=args.student_width,
         student_depth=args.student_depth,
+        spatial_shards=args.spatial_shards,
     )
     if args.synthetic:
         dataset = SyntheticPairs(args.synthetic, args.height, args.width, seed=args.seed)
@@ -309,7 +358,8 @@ def main(argv=None) -> int:
                 "WATERNET_TPU_WEIGHTS, or place the teacher checkpoint in ./weights"
             )
     engine = TrainingEngine(config, params=params, vgg_params=vgg_params, device=dev,
-                            teacher_params=teacher_params)
+                            teacher_params=teacher_params,
+                            devices=devices if args.spatial_shards > 1 else None)
 
     saved_train = {k: [] for k in TRAIN_METRICS_NAMES}
     saved_val = {k: [] for k in VAL_METRICS_NAMES}
@@ -347,13 +397,13 @@ def main(argv=None) -> int:
         except ValueError as e:  # the cache's rules, e.g. what --precache-vgg-ref needs
             raise SystemExit(f"--device-cache: {e}")
         sync()
-        print("cache_build " + json.dumps({
+        _record("cache_build", {
             "cache_build_sec": time.perf_counter() - t0, "cache_codec": engine.config.cache_codec,
             "hbm_cache_bytes": engine.cache_resident_bytes(),
             "precache_histeq": engine._cache_pre is not None,
             "precache_vgg_ref": engine._cache_pre is not None and engine._cache_pre["vgg_ref"] is not None,
             "launches": dict(kernels.LAUNCHES),
-        }), flush=True)
+        })
         print(
             f"Device cache: codec={engine.config.cache_codec} "
             f"resident={engine.cache_resident_bytes()} bytes "
@@ -388,7 +438,20 @@ def main(argv=None) -> int:
                 "history_train": saved_train, "history_val": saved_val}
 
     savedir = rundir.next_run_dir(train_root)
+    if multi:
+        # Every process names the same run directory before any creates it.
+        torch.distributed.barrier()
     manager = CheckpointManager(savedir / "checkpoints", keep=args.keep_checkpoints)
+
+    def save_checkpoint(meta):
+        if writer:
+            manager.save(engine, meta=meta)
+
+    tb_writer = None
+    if args.tensorboard and writer:
+        from torch.utils.tensorboard import SummaryWriter
+
+        tb_writer = SummaryWriter(str(savedir / "tb"))
     throughputs = []
     n_steps = -(-len(train_idx) // config.batch_size)
     profile_epoch = min(1, args.epochs - 1)  # the first warm epoch
@@ -396,13 +459,14 @@ def main(argv=None) -> int:
     with guard, _debug_nans(args.debug_nans):
         for epoch in range(start_epoch, args.epochs):
             sb = start_batch if epoch == start_epoch else 0
-            profiler = _start_profiler(cuda) if args.profile_dir and epoch == profile_epoch else None
+            profiler = (_start_profiler(cuda) if args.profile_dir and writer and epoch == profile_epoch
+                        else None)
             if heartbeat is not None:
                 heartbeat.epoch = epoch
             control = EpochControl(
                 preemption=guard,
                 sentinel=DivergenceSentinel() if args.nan_guard else None,
-                checkpoint_cb=lambda nb, pm, _e=epoch: manager.save(engine, meta=midepoch_meta(_e, nb, pm)),
+                checkpoint_cb=lambda nb, pm, _e=epoch: save_checkpoint(midepoch_meta(_e, nb, pm)),
                 every_steps=args.every_steps,
                 every_secs=args.every_secs,
                 heartbeat=heartbeat,
@@ -415,7 +479,7 @@ def main(argv=None) -> int:
             try:
                 train_metrics = train_epoch(epoch, sb, control, carry if epoch == start_epoch else None)
             except Preempted as pre:
-                manager.save(engine, meta=midepoch_meta(epoch, pre.next_batch, pre.partial))
+                save_checkpoint(midepoch_meta(epoch, pre.next_batch, pre.partial))
                 if profiler is not None:
                     profiler.stop()
                 if heartbeat is not None:
@@ -450,8 +514,8 @@ def main(argv=None) -> int:
             )
             print("    Train ||", "   ".join(f"{k}: {v:.03g}" for k, v in train_metrics.items()))
             print("    Val   ||", "   ".join(f"{k}: {v:.03g}" for k, v in val_metrics.items()))
-            print("epoch_stats " + json.dumps({
-                "epoch": epoch + 1, "device": str(dev), "train_images": trained,
+            _record("epoch_stats", {
+                "epoch": epoch + 1, "device": str(dev), "process": rank, "train_images": trained,
                 "steps": steps, "train_s": train_dt, "val_s": dt - train_dt,
                 "train_images_per_s": ips, "step_ms": train_dt / max(steps, 1) * 1e3,
                 "peak_mem_bytes": torch.cuda.max_memory_allocated(dev) if cuda else None,
@@ -460,7 +524,7 @@ def main(argv=None) -> int:
                 **{k: v for k, v in train_metrics.items() if k.startswith(("pipeline_", "nan_"))},
                 "val_pipeline": {k: v for k, v in val_metrics.items() if k.startswith("pipeline_")},
                 "launches": {"train": train_launches, "val": val_launches},
-            }), flush=True)
+            })
             for k in TRAIN_METRICS_NAMES:
                 saved_train[k].append(train_metrics[k])
             for k in VAL_METRICS_NAMES:
@@ -469,12 +533,22 @@ def main(argv=None) -> int:
                 snap = engine.perf.epoch_snapshot()
                 for k in PERF_CSV_COLS:
                     saved_perf[k].append(np.nan if snap[k] is None else float(snap[k]))
-            savedir.mkdir(parents=True, exist_ok=True)
-            save_weights(engine.model.state_dict(), savedir / "last.npz")
-            engine.checkpoint(savedir / "state")
+            if tb_writer is not None:
+                for k, v in train_metrics.items():
+                    if isinstance(v, (int, float)):
+                        tb_writer.add_scalar(f"train/{k}", v, epoch)
+                for k, v in val_metrics.items():
+                    if isinstance(v, (int, float)):
+                        tb_writer.add_scalar(f"val/{k}", v, epoch)
+                tb_writer.add_scalar("perf/images_per_sec", ips, epoch)
+                tb_writer.flush()  # an abnormal exit keeps the epoch
+            if writer:
+                savedir.mkdir(parents=True, exist_ok=True)
+                save_weights(engine.model.state_dict(), savedir / "last.npz")
+                engine.checkpoint(savedir / "state")
             # The managed checkpoint: atomic, marker-finalized, with the
             # position and history a bit-for-bit --resume auto needs.
-            manager.save(engine, meta={
+            save_checkpoint({
                 "epoch": epoch + 1, "batch_index": 0, "history_train": saved_train,
                 "history_val": saved_val, "val_psnr": float(val_metrics["psnr"]),
             })
@@ -488,6 +562,14 @@ def main(argv=None) -> int:
 
     if heartbeat is not None:
         heartbeat.beat(step=engine._host_step, phase="done", force=True)
+    # Every process names its final parameters: data-parallel ranks end equal.
+    _record("final_state", {"process": rank, "num_processes": world, "step": engine._host_step,
+                            "params_sha256": _params_digest(engine.model.state_dict())})
+    if tb_writer is not None:
+        tb_writer.close()
+    pdist.shutdown()
+    if not writer:
+        return 0
     savedir.mkdir(parents=True, exist_ok=True)
     train_arr = np.array([saved_train[k] for k in TRAIN_METRICS_NAMES], dtype=np.float64).T.reshape(
         -1, len(TRAIN_METRICS_NAMES))
@@ -531,10 +613,34 @@ def main(argv=None) -> int:
         "distill": config.distill,
         "student_width": config.student_width if config.distill else None,
         "student_depth": config.student_depth if config.distill else None,
+        "spatial_shards": config.spatial_shards,
+        # Supervision provenance: which restart generation finished the
+        # run, and over how many processes.
+        "restart_generation": gen,
+        "num_processes": world,
     }, indent=4))
     print(f"Metrics and weights saved to {savedir}")
     print(f"Total time: {time.perf_counter() - start_ts}s")
     return 0
+
+
+def _record(tag: str, obj: dict) -> None:
+    """One ``<tag> {json}`` line in a single write, so ranks that share a
+    pipe never split it, even unbuffered (``print`` writes its newline
+    separately there)."""
+    sys.stdout.write(f"{tag} {json.dumps(obj)}\n")
+    sys.stdout.flush()
+
+
+def _params_digest(state_dict) -> str:
+    """SHA-256 of a state_dict's tensors' bytes, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(state_dict):
+        h.update(k.encode())
+        h.update(state_dict[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _start_profiler(cuda: bool):

@@ -65,6 +65,8 @@ def ssim_per_image(
     target = target.to(torch.float32)
     if data_range is None:
         dr = torch.maximum(preds.max() - preds.min(), target.max() - target.min())
+    elif torch.is_tensor(data_range):
+        dr = data_range.to(torch.float32)
     else:
         dr = torch.tensor(data_range, dtype=torch.float32, device=preds.device)
     c1 = (k1 * dr) ** 2

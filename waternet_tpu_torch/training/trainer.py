@@ -72,8 +72,32 @@ the reference in every loss and metric, so val ssim/psnr read as
 student-against-teacher fidelity. Everything else (the feeds, the
 caches, resume) is the same machinery.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item
-rather than being ignored): spatial sharding.
+Multi-GPU, as the JAX package's mesh does it, in PyTorch's idiom:
+
+* **data parallel**: with ``torch.distributed`` initialized
+  (:mod:`waternet_tpu_torch.parallel.distributed`), each process trains one
+  data shard. ``DistributedDataParallel`` wraps the trained module (it
+  broadcasts rank 0's parameters at construction and averages the
+  gradients). Every rank builds the same global batch from the seed, as
+  every JAX host does (a device cache holds the whole set on every rank);
+  the augmentation is drawn for the global batch; each rank pads the batch
+  to a multiple of the world size by repeating its last row and takes its
+  :func:`~waternet_tpu_torch.parallel.distributed.local_batch_slice`, the
+  pad masked. The rank's loss is scaled by ``world * local_real /
+  global_real`` so that the averaged gradient is the single-process mean
+  over the global batch, and the step's metric sums (and SSIM's data
+  range) are all-reduced so that every rank logs the global metrics. Eval
+  runs the whole val set on every rank, unsharded.
+* **spatial** (``spatial_shards > 1``): within one process, over its
+  ``spatial_shards`` devices (process r owns ``[r*S, (r+1)*S)``, or the
+  ``devices`` given), the WaterNet forward and backward run through
+  :func:`~waternet_tpu_torch.parallel.spatial.spatial_sharded_apply`, the
+  parameters broadcast differentiably to distinct cards
+  (``torch.nn.parallel.replicate``); the outputs are gathered to the first
+  device and the losses (MSE, SSIM, VGG perceptual) run there on the whole
+  image: the same math as the JAX package's SPMD step, with the loss not
+  sharded. Distillation supports data parallelism only, as in the JAX
+  package.
 """
 
 from __future__ import annotations
@@ -110,12 +134,14 @@ from waternet_tpu_torch.ops.clahe import histeq
 from waternet_tpu_torch.ops.fused import fused_train_preprocess
 from waternet_tpu_torch.ops.gamma import gamma_correction
 from waternet_tpu_torch.ops.transform import transform_np
+from waternet_tpu_torch.parallel import distributed as pdist
 from waternet_tpu_torch.ops.wb import white_balance
 from waternet_tpu_torch.resilience import faults
 from waternet_tpu_torch.resilience.preemption import Preempted
 from waternet_tpu_torch.training.losses import PERCEPTUAL_WEIGHT, mse_255, perceptual_loss
 from waternet_tpu_torch.training.metrics import psnr as psnr_fn
 from waternet_tpu_torch.training.metrics import ssim as ssim_fn
+from waternet_tpu_torch.training.metrics import ssim_per_image
 from waternet_tpu_torch.utils.checkpoint import load_state, params_mismatch_report, save_state_atomic
 from waternet_tpu_torch.utils.convert import state_dict_from_jax, vgg_state_dict_from_jax
 from waternet_tpu_torch.utils.device import resolve_device
@@ -251,17 +277,16 @@ class TrainConfig:
     cache_codec: str = "raw"
 
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a field whose path the port
-        does not have yet, naming its ROADMAP item."""
-        missing = {
-            "spatial_shards > 1": (self.spatial_shards > 1, "Queue A item 8 (multi-GPU)"),
-        }
-        for name, (on, item) in missing.items():
-            if on:
-                raise NotImplementedError(
-                    f"TrainConfig.{name} is not ported to waternet_tpu_torch yet "
-                    f"(ROADMAP {item})"
-                )
+        """Validate the fields. Every field's path is ported, so nothing
+        raises for being missing; a value no path takes raises
+        ``ValueError``, the JAX package's rules and messages."""
+        if self.spatial_shards < 1:
+            raise ValueError(f"spatial_shards must be >= 1, got {self.spatial_shards}")
+        if self.distill and self.spatial_shards > 1:
+            raise ValueError(
+                "distillation supports data parallelism only for now "
+                "(the student's dilated convs would need 64-row halos)"
+            )
         if self.precision not in ("bf16", "fp32"):
             raise ValueError(f"precision must be 'bf16' or 'fp32', got {self.precision!r}")
 
@@ -287,6 +312,32 @@ def step_generator(seed: int, epoch: int, batch: int) -> torch.Generator:
 
 def _no_stamp(stage: str) -> None:
     """The steps' default ``stamp``: nothing."""
+
+
+class SpatialForward(torch.nn.Module):
+    """WaterNet's forward H-sharded over ``devices`` (one process's spatial
+    group): a module, so that ``DistributedDataParallel`` can wrap it. The
+    parameters stay on the first device; distinct devices get replicas by
+    ``torch.nn.parallel.replicate``, a broadcast that autograd reduces
+    back, and shards on one device share the module itself (the same
+    arithmetic)."""
+
+    def __init__(self, net: torch.nn.Module, devices):
+        from waternet_tpu_torch.parallel.mesh import make_mesh
+
+        super().__init__()
+        self.net = net
+        self.mesh = make_mesh(1, len(devices), devices)
+        self.distinct = list(dict.fromkeys(self.mesh.spatial_devices()))
+
+    def forward(self, x, wb, he, gc):
+        from waternet_tpu_torch.parallel.spatial import spatial_sharded_apply
+
+        if len(self.distinct) == 1:
+            replicas = {self.distinct[0]: self.net}
+        else:
+            replicas = dict(zip(self.distinct, torch.nn.parallel.replicate(self.net, self.distinct)))
+        return spatial_sharded_apply(replicas, self.mesh)(x, wb, he, gc)
 
 
 def vgg_ref_bytes_per_item(h: int, w: int, precision: str) -> int:
@@ -348,6 +399,7 @@ class TrainingEngine:
         vgg_params: Optional[dict] = None,
         device="cuda",
         teacher_params: Optional[dict] = None,
+        devices=None,
     ):
         """``params``: the trained model's weights as the JAX tree (nested or
         flat keys; converted) or as a port state_dict; None draws the port's
@@ -355,10 +407,27 @@ class TrainingEngine:
         likewise (JAX tree or ``features.*`` state_dict); None with the
         perceptual term on takes the deterministic random init. With
         ``config.distill`` the trained model is the CAN student and
-        ``teacher_params`` (WaterNet weights, required) the frozen teacher."""
+        ``teacher_params`` (WaterNet weights, required) the frozen teacher.
+
+        ``devices``: with ``config.spatial_shards > 1``, the process's
+        spatial group (may repeat a device); by default the process's own
+        devices (:func:`~waternet_tpu_torch.parallel.distributed.
+        process_devices`). ``device`` is then the group's first. With
+        ``torch.distributed`` initialized over several processes the
+        engine trains data-parallel (see the module docstring)."""
         config.check_ported()
         self.config = config
         self.device = resolve_device(device)
+        self._world, self._rank = pdist.process_count(), pdist.process_index()
+        self.devices = [self.device]
+        if config.spatial_shards > 1:
+            if devices is None:
+                devices = pdist.process_devices(self.device, config.spatial_shards, self._rank)
+            self.devices = [resolve_device(d) for d in devices]
+            if len(self.devices) != config.spatial_shards:
+                raise ValueError(f"spatial_shards={config.spatial_shards} needs as many devices, "
+                                 f"got {len(self.devices)}")
+            self.device = self.devices[0]
         if config.distill:
             if teacher_params is None:
                 raise ValueError(
@@ -383,6 +452,15 @@ class TrainingEngine:
         self.model = build()
         self.model.load_state_dict(sd, strict=True)
         self.model.to(self.device).train()
+        # The forward the steps call: the model, or its spatially sharded
+        # forward; under several processes, DDP over it (trained steps only:
+        # eval calls ``_fwd`` and runs no collective).
+        self._fwd = self.model if config.spatial_shards == 1 else SpatialForward(self.model, self.devices)
+        self._net = self._fwd
+        if self._world > 1:
+            from torch.nn.parallel import DistributedDataParallel
+
+            self._net = DistributedDataParallel(self._fwd)
 
         self.vgg = None
         if config.perceptual_weight != 0.0:
@@ -424,6 +502,7 @@ class TrainingEngine:
 
     def _losses_and_out(self, x, wbn, hen, gcn, refn, mask, stamp=_no_stamp, ref_feats=None):
         aux = {}
+        net = self._net if torch.is_grad_enabled() else self._fwd
         if self.teacher is not None:
             # Frozen teacher: the full quality pipeline's output (the
             # batch's WB/GC/CLAHE planes are its variant inputs) replaces
@@ -433,10 +512,10 @@ class TrainingEngine:
             ref_feats = None  # precached vgg(ref) features target the wrong image
             aux["target"] = refn
             with self._autocast():
-                out = self.model(x)
+                out = net(x)
         else:
             with self._autocast():
-                out = self.model(x, wbn, hen, gcn)
+                out = net(x, wbn, hen, gcn)
         out = out.to(torch.float32)
         stamp("forward")
         mse = mse_255(out, refn, mask)
@@ -463,31 +542,102 @@ class TrainingEngine:
             m["loss"] = loss.detach()
         return m
 
+    @torch.no_grad()
+    def _global_metrics(self, out, refn, aux, mask, n_global: int) -> dict:
+        """The step's metrics over the global batch, the same on every rank:
+        the per-rank masked sums all-reduced (one MAX for SSIM's data range
+        over the global batch, one SUM), then divided by the global count."""
+        dist = torch.distributed
+        refn = aux.get("target", refn)
+        n_local = mask.sum()
+        ranges = torch.stack([out.max(), -out.min(), refn.max(), -refn.min()]).to(torch.float32)
+        dist.all_reduce(ranges, op=dist.ReduceOp.MAX)
+        data_range = torch.maximum(ranges[0] + ranges[1], ranges[2] + ranges[3])
+        m = mask.to(torch.float32)
+        sq = torch.square(out.to(torch.float32) - refn.to(torch.float32))
+        sums = torch.stack([
+            aux["mse"].detach() * n_local,
+            aux["perceptual_loss"].detach() * n_local,
+            (ssim_per_image(out, refn, data_range=data_range) * m).sum(),
+            (sq.reshape(sq.shape[0], -1).mean(dim=-1) * m).sum(),
+        ]).to(torch.float32)
+        dist.all_reduce(sums)
+        mse, perc, ssim, sq_mean = sums / n_global
+        loss = mse if self.config.perceptual_weight == 0.0 else self.config.perceptual_weight * perc + mse
+        return {"mse": mse, "ssim": ssim, "psnr": 10.0 * torch.log10(1.0 / sq_mean),
+                "perceptual_loss": perc, "loss": loss}
+
     def _mask(self, n: int, n_real: int) -> torch.Tensor:
         return torch.arange(n, device=self.device) < n_real
+
+    def _local_rows(self, n_real: int):
+        """Data parallel: the rows of the ``n_real``-row global batch this
+        rank trains (a CPU index tensor; the batch padded to a multiple of
+        the world size by repeating its last row) and how many of them are
+        real. The padded rows come last, so a rank's real rows lead."""
+        padded = -(-n_real // self._world) * self._world
+        sl = pdist.local_batch_slice(padded, self._rank, self._world)
+        rows = torch.arange(sl.start, sl.stop).clamp_max(n_real - 1)
+        return rows, max(0, min(sl.stop, n_real) - sl.start)
+
+    def _split_step(self, n: int, n_real: int, generator):
+        """``(draws, rows, n_local)`` of one step over an n-row batch: the
+        augmentation drawn for the whole (global) batch, or None when the
+        step does not augment; under data parallelism the rows this rank
+        trains (:meth:`_local_rows`) and the draws cut to them, else
+        ``rows`` None and every row this process's."""
+        draws = None
+        if self.config.augment and generator is not None:
+            draws = draw_augment(generator, n)
+        if self._world == 1:
+            return draws, None, n_real
+        rows, n_local = self._local_rows(n_real)
+        if draws is not None:
+            draws = tuple(d.index_select(0, rows) for d in draws)
+        return draws, rows, n_local
 
     def train_step(self, raw_u8, ref_u8, generator, n_real: int, stamp=_no_stamp) -> dict:
         """One optimizer step on a uint8 (N, H, W, 3) pair batch on the
         engine's device; returns the step's metrics as 0-d device tensors
-        (nothing is read back)."""
-        with torch.no_grad():
-            views = fused_train_preprocess(raw_u8, ref_u8, generator, augment=self.config.augment)
-        stamp("preprocess")
-        return self.train_step_pre(*views, n_real, stamp=stamp)
+        (nothing is read back). Under data parallelism the batch is the
+        global one, and the step trains this rank's rows."""
+        draws, rows, n_local = self._split_step(raw_u8.shape[0], n_real, generator)
+        if rows is not None:
+            r = to_device(rows, self.device)
+            raw_u8, ref_u8 = raw_u8.index_select(0, r), ref_u8.index_select(0, r)
+        return self._train_u8(raw_u8, ref_u8, draws, n_local, None if rows is None else n_real, stamp)
 
-    def train_step_pre(self, x, wbn, hen, gcn, refn, n_real: int, stamp=_no_stamp, ref_feats=None) -> dict:
+    def _train_u8(self, raw_u8, ref_u8, draws, n_real, n_global, stamp):
+        with torch.no_grad():
+            views = fused_train_preprocess(raw_u8, ref_u8, None, augment=self.config.augment, draws=draws)
+        stamp("preprocess")
+        return self.train_step_pre(*views, n_real, stamp=stamp, n_global=n_global)
+
+    def train_step_pre(self, x, wbn, hen, gcn, refn, n_real: int, stamp=_no_stamp, ref_feats=None,
+                       n_global: Optional[int] = None) -> dict:
         """One optimizer step on the five float32 [0, 1] views, in the
         network's input order; no transform runs inside it. ``ref_feats``
-        (precache_vgg_ref) stands in for VGG's features of ``refn``."""
+        (precache_vgg_ref) stands in for VGG's features of ``refn``.
+        ``n_global`` (data parallel): the views are this rank's rows, the
+        first ``n_real`` of them real, of a global batch of ``n_global``
+        real rows."""
         mask = self._mask(x.shape[0], n_real)
         loss, out, aux = self._losses_and_out(x, wbn, hen, gcn, refn, mask, stamp, ref_feats)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if n_global is None:
+            loss.backward()
+        else:
+            # DDP averages the ranks' gradients: this scale makes the average
+            # the gradient of the mean over the global batch.
+            (loss * (self._world * n_real / n_global)).backward()
         stamp("backward")
         self.optimizer.step()
         self.scheduler.step()
         stamp("optimizer")
-        m = self._metrics(out.detach(), refn, aux, mask, loss)
+        if n_global is None:
+            m = self._metrics(out.detach(), refn, aux, mask, loss)
+        else:
+            m = self._global_metrics(out.detach(), refn, aux, mask, n_global)
         stamp("metrics")
         return m
 
@@ -632,8 +782,8 @@ class TrainingEngine:
     def _cached_index_batches(self, n: int, epoch: int, shuffle: bool, start: int = 0):
         """Yield (idx, n_real) covering all n items from batch ``start`` on:
         the JAX trainer's batch composition (the same Philox shuffle),
-        without its padding to the data axis (the port runs on one
-        device)."""
+        without its padding to the data axis (a data-parallel step pads
+        and cuts each batch itself)."""
         b = self.config.batch_size
         order = epoch_permutation(np.arange(n), self.config.seed, epoch) if shuffle else np.arange(n)
         for s in range(start * b, n, b):
@@ -652,9 +802,18 @@ class TrainingEngine:
         return self.train_step_cached_codec, (self._cache_enc,)
 
     def train_step_cached_codec(self, enc, idx, generator, n_real, stamp=_no_stamp):
+        """The cached step over a codec's planes: gather and decode the
+        batch, then :meth:`train_step`; data parallel, gather and decode
+        this rank's rows only."""
+        if self._world == 1:
+            raw_u8, ref_u8 = self._gather_decode(enc, self.config.cache_codec, idx)
+            stamp("gather_decode")
+            return self.train_step(raw_u8, ref_u8, generator, n_real, stamp)
+        draws, rows, n_local = self._split_step(idx.shape[0], n_real, generator)
+        idx = idx.index_select(0, to_device(rows, self.device))
         raw_u8, ref_u8 = self._gather_decode(enc, self.config.cache_codec, idx)
         stamp("gather_decode")
-        return self.train_step(raw_u8, ref_u8, generator, n_real, stamp)
+        return self._train_u8(raw_u8, ref_u8, draws, n_local, n_real, stamp)
 
     @staticmethod
     def _gather_pre(cache: dict, idx: torch.Tensor):
@@ -670,12 +829,16 @@ class TrainingEngine:
         ``draw_augment``), then gather each image's CLAHE (and, with
         precache_vgg_ref, its reference features) from the table row of its
         dihedral variant. No classical transform runs; the step equals the
-        in-step raw-cache step bit for bit."""
+        in-step raw-cache step bit for bit. Data parallel: the draws are
+        made for the global batch and this rank gathers its rows only."""
+        draws, rows, n_local = self._split_step(idx.shape[0], n_real, generator)
+        if rows is not None:
+            idx = idx.index_select(0, to_device(rows, self.device))
         raw, ref, wb, gc = self._gather_pre(cache, idx)
         stamp("gather_decode")
-        if self.config.augment and generator is not None:
+        if draws is not None:
             square = self.config.im_height == self.config.im_width
-            hflip, vflip, rotk = draw_augment(generator, idx.shape[0])
+            hflip, vflip, rotk = draws
             variant = dihedral_variant_index(hflip, vflip, rotk, square)
             # One copy to the device for all the draws.
             draws = to_device(torch.stack([t.to(torch.int64) for t in (hflip, vflip, rotk, variant)]), self.device)
@@ -687,7 +850,8 @@ class TrainingEngine:
         ref_feats = None if cache["vgg_ref"] is None else cache["vgg_ref"][variant, idx]
         stamp("preprocess")
         return self.train_step_pre(raw / 255.0, wb / 255.0, he / 255.0, gc / 255.0, ref / 255.0,
-                                   n_real, stamp=stamp, ref_feats=ref_feats)
+                                   n_local, stamp=stamp, ref_feats=ref_feats,
+                                   n_global=None if rows is None else n_real)
 
     @torch.no_grad()
     def eval_step_cached_pre(self, cache, idx, n_real):
@@ -762,8 +926,14 @@ class TrainingEngine:
     def _train_on(self, epoch: int, count: int, tensors, n_real: int) -> dict:
         """One train step on a batch already on the device: the five views
         (host preprocessing) or the uint8 (raw, ref) pair, augmented by the
-        step's own generator as in ``train_epoch_cached``."""
+        step's own generator as in ``train_epoch_cached``. Data parallel:
+        the batch is the global one (the five views cut to this rank's rows
+        here; the uint8 pair in :meth:`train_step`)."""
         if self.config.host_preprocess:
+            if self._world > 1:
+                rows, n_local = self._local_rows(n_real)
+                r = to_device(rows, self.device)
+                return self.train_step_pre(*(t.index_select(0, r) for t in tensors), n_local, n_global=n_real)
             return self.train_step_pre(*tensors, n_real)
         return self.train_step(*tensors, step_generator(self.config.seed, epoch, count), n_real)
 
@@ -952,8 +1122,8 @@ class TrainingEngine:
         synchronous epoch draws from (past the skipped prefix, as
         :meth:`_host_augment_rng` does), without data, and records where
         each batch starts; a worker clones its batch's state and makes the
-        same draws in any completion order. The port runs on one device, so
-        a batch of n items consumes n items' draws (no padding rows)."""
+        same draws in any completion order. A batch of n items consumes n
+        items' draws: the host augments the global batch, unpadded."""
         if not (self.config.host_preprocess and self.config.augment):
             return None
         host_rng = self._host_augment_rng(epoch, start_batch, start_items)
