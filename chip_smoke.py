@@ -246,7 +246,19 @@ Phases; any failure exits non-zero, and nothing below is caught:
    replica a card; with one card its ``note`` says both arms ran one
    replica) and (f) the inference CLI with ``--spatial-shards 2``, which
    exits non-zero naming the card count where fewer than 2 cards are
-   visible.
+   visible;
+16. X, the static analyzer's runtime companions (``waternet_tpu_torch/
+   analysis``). (a) The lock watchdog: a ``LockTracer`` installed before
+   a bf16 ``ServingServer`` with device preprocessing (bucketed
+   ``DynamicBatcher``, one replica, the HTTP front door) is built; 12 of
+   phase 12's population and one 6-frame stream session, no kernel
+   launch; the traced lock sites and edges printed, the graph acyclic.
+   (b) The sync watch: 6 steps of T2's config in bf16 through
+   ``_drive_train_epoch`` without a sentinel and with one at a window of
+   2, under ``torch.cuda.set_sync_debug_mode("warn")``: the synchronizing
+   operations of each step with their first ``waternet_tpu_torch`` frame,
+   each a site the static R003 reports, and one launch of each CLAHE
+   kernel a step (``run_watchdogs`` says what the debug mode cannot see).
 
 The last lines are the ``{"kernels": [...]}`` summary, the card line and
 the ``{"ok": true, "device": ...}`` result. Inputs are made with numpy
@@ -353,6 +365,9 @@ FLEET_BENCH_ENV = {"WATERNET_BENCH_FLEET_IMAGES": "8", "WATERNET_BENCH_SERVE_REQ
 # runs beside it (the JAX bench's 12 s default would lengthen the phase).
 MULTI = dict(spatial=(2, 4), data_shards=2, data_batch=3, ddp_workers=2, ddp_rel=1e-3, chaos_hang_sec=8.0)
 SERVE_MULTI_BENCH_ENV = {"WATERNET_BENCH_SERVE_IMAGES": "12"}
+# Phase 16 (X, the watchdogs): (a)'s requests and stream frames from phase
+# 12's population; (b)'s steps of T2's config and the sentinel's window.
+WATCH = dict(requests=12, stream_frames=6, steps=6, window=2)
 WATERNET_MAC_PER_PX = 1_089_824
 TRAIN_KEYS = ("mse", "ssim", "psnr", "perceptual_loss", "loss")
 VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -366,6 +381,7 @@ def device_ms(torch, fn, flush) -> float:
     enqueue the whole run, so host overhead is not timed."""
     for _ in range(3):
         fn()
+    # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
     torch.cuda.synchronize()
     times = []
     for _ in range(TIMING_REPS):
@@ -376,6 +392,7 @@ def device_ms(torch, fn, flush) -> float:
         start.record()
         fn()
         end.record()
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
@@ -474,6 +491,7 @@ def l_planes(torch, dev, rng) -> dict:
     for tag, (n, hw, codec_name) in TRAIN_PLANES.items():
         pairs = SyntheticPairs(n, hw, hw, seed=SEED)
         raw = np.stack([pairs.load_pair(i)[0] for i in range(n)])
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         payload = {k: torch.from_numpy(v).to(dev) for k, v in codec.encode(codec_name, raw).items()}
         rgb = codec.decode(codec_name, payload, hw, hw)
         rgb, _ = augment_pair_batch(step_generator(SEED, 0, 0), rgb, rgb)
@@ -499,12 +517,15 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
     for tag, (n, h, w) in DCT8_SHAPES.items():
         pairs = SyntheticPairs(n, h, w, seed=SEED)
         imgs = np.stack([pairs.load_pair(i)[i % 2] for i in range(n)])
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         coef5 = torch.from_numpy(codec.encode("dct8", imgs)["coef"]).to(dev).contiguous()
         coef = coef5.reshape(-1, 16)
         nb = coef.shape[0]
         got = kernels.dct8_dequant_idct(coef, quant, idct_m)
         want = kernels.dct8_dequant_idct_plain(coef, quant, idct_m)
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         torch.cuda.synchronize()
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         check(torch.equal(got, want), f"dct8_dequant_idct != plain at NB={nb}")
         nbytes = nb * 16 + 16 * 4 + 16 * 64 * 4 + nb * 64 * 4
         b_ms, b_by = bound(nbytes, nb * (16 + 2 * 16 * 64))
@@ -516,8 +537,10 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
             # Yardstick: dequantize, then one cuBLAS product (TF32 off).
             "library_ms": device_ms(torch, lambda: torch.mm(coef.float() * quant, idct_m), flush),
             "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+            # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
             "max_abs_err": (got - want).abs().max().item(),
         }
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         lib_err = (torch.mm(coef.float() * quant, idct_m) - want).abs().max().item()
         plan = {"ctas": kernels.dct8_ctas(-(-nb // 16), sms), "store_bytes": 16}
         kernel_line("dct8_dequant_idct", tag, {"nb": nb, "images": [n, h, w]}, r, card,
@@ -537,9 +560,12 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
         got = kernels.dct8_decode_u8(coef5, quant, idct_m, h, w)
         want = kernels.dct8_decode_u8_plain(coef5, quant, idct_m, h, w)
         parent = parent_path()
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         torch.cuda.synchronize()
         check(got.shape == (n, h, w, 3) and got.dtype == torch.uint8, f"dct8_decode_u8 {got.shape}")
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         check(torch.equal(got, want), f"dct8_decode_u8 != plain at {tag} NB={nb}")
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         check(torch.equal(got, parent), f"dct8_decode_u8 != the f32 kernel + epilogue at {tag}")
         out_px = n * h * w * 3
         nbytes = nb * 16 + 16 * 4 + 16 * 64 * 4 + out_px
@@ -553,6 +579,7 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
             # Yardstick: dequantize, one cuBLAS product, the same epilogue.
             "library_ms": device_ms(torch, library_path, flush),
             "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+            # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
             "max_abs_err": (got.int() - want.int()).abs().max().item(),
         }
         lib_err = (library_path().int() - want.int()).abs().max().item()
@@ -573,14 +600,18 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
         got = kernels.tile_histogram(l_pad, (ty, tx))
         want = kernels.tile_histogram_plain(l_pad, (ty, tx))
         luts = kernels.luts_from_hist(got.reshape(-1, 256), clip, scale).reshape(n, ty, tx, 256)
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         torch.cuda.synchronize()
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         check(torch.equal(got, want), f"tile_histogram != plain at {tag} {n}x{h}x{w}")
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         check(torch.equal(luts, kernels.tile_lut(l_pad, (ty, tx), clip, scale)),
               f"luts_from_hist(tile_histogram) != tile_lut at {tag}")
         nbytes = n * hp * wp + n * ty * tx * 256 * 4
         b_ms, b_by = bound(nbytes)
         keys = tile_keys(torch, l_pad, ty, tx)
         n_bins = n * ty * tx * 256
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         check(torch.equal(torch.bincount(keys, minlength=n_bins).reshape(got.shape).to(got.dtype), got),
               f"bincount yardstick != tile_histogram at {tag}")
         r = {
@@ -588,6 +619,7 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
             "plain_ms": device_ms(torch, lambda: kernels.tile_histogram_plain(l_pad, (ty, tx)), flush),
             "library_ms": device_ms(torch, lambda: torch.bincount(keys, minlength=n_bins), flush),
             "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+            # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
             "max_abs_err": (got - want).abs().max().item(),
         }
         plan = kernels.tile_plan(n, hp, wp, ty, tx, l_pad.data_ptr(), sms)._asdict()
@@ -2891,6 +2923,227 @@ def run_multi(torch, dev, card, t1_dir: Path) -> dict:
     return launches
 
 
+def _first_port_frame(stack) -> str:
+    """``path:line`` (relative to the repository) of the innermost frame
+    of ``stack`` inside ``waternet_tpu_torch``, or "" when none is."""
+    pkg = str(REPO / "waternet_tpu_torch")
+    for frame in reversed(stack):
+        if frame.filename.startswith(pkg):
+            return f"{Path(frame.filename).relative_to(REPO)}:{frame.lineno}"
+    return ""
+
+
+class SyncWatch:
+    """``torch.cuda.set_sync_debug_mode("warn")`` over a block, with every
+    "synchronizing CUDA operation" warning recorded with the tag current
+    when it fired and its first ``waternet_tpu_torch`` frame. The mode is
+    reset to 0 on the way out, whatever happens in the block."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.tag = None
+        self.records = []  # (tag, site)
+
+    def _hook(self, message, category, filename, lineno, file=None, line=None):
+        import traceback
+
+        if "synchronizing CUDA operation" in str(message):
+            self.records.append((self.tag, _first_port_frame(traceback.extract_stack()[:-1])))
+
+    def __enter__(self):
+        import warnings
+
+        self._ctx = warnings.catch_warnings()
+        self._ctx.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self._hook
+        self.torch.cuda.synchronize()
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            self.torch.cuda.set_sync_debug_mode(0)
+        finally:
+            self._ctx.__exit__(*exc)
+
+
+def run_watchdogs(torch, dev, card) -> dict:
+    """Phase 16 (X): the static analyzer's runtime companions on the card.
+    Returns the launches of (a)'s serving run and of (b)'s train runs.
+
+    (a) The lock watchdog (``waternet_tpu_torch.analysis.locktrace``, the
+    runtime side of R102): a ``LockTracer`` installed before anything is
+    built; a bf16 ``ServingServer`` with device preprocessing (its
+    bucketed ``DynamicBatcher``, one replica on the card, the HTTP front
+    door) on phase 12's ladder answers 12 of its population and one
+    6-frame stream session; the traced lock sites and edges are printed
+    and the graph must be acyclic.
+
+    (b) The sync watch, the runtime side of R003: six steps of T2's config
+    (16 x 112x112, raw cache, bf16) through ``_drive_train_epoch``, once
+    without a sentinel and once under a ``DivergenceSentinel`` at a window
+    of 2, under ``torch.cuda.set_sync_debug_mode("warn")`` (reset to 0 on
+    the way out, even on failure). Every synchronizing operation is
+    printed per step with its first ``waternet_tpu_torch`` frame; each of
+    those sites must be one the static R003 reports (``lint_models`` over
+    the port and this script, suppressed findings included).
+
+    What ``set_sync_debug_mode`` does not see, checked again on each run
+    (each operation of R003's list alone, printed): ``torch.cuda.
+    synchronize()`` and ``torch.cuda.Event.synchronize()``, explicit waits
+    that raise no warning, and ``torch.equal()``, whose host-side bool
+    raises none either, so R003 names them from the source alone.
+    ``Stream.synchronize()``, ``.item()``, ``.cpu()``, ``float()``, an
+    output-size readback (``nonzero``, mask indexing) and a copy from
+    pageable host memory are reported; a pinned ``non_blocking`` copy is
+    no sync. Work the host waits for outside torch (cv2, a ``Future``) is
+    not a CUDA sync and is R103/R201's business."""
+    from waternet_tpu_torch.analysis import lint_models, parse_model
+    from waternet_tpu_torch.analysis.core import collect_py_files
+    from waternet_tpu_torch.analysis.lint_all import DEFAULT_TARGETS
+    from waternet_tpu_torch.analysis.locktrace import LockTracer
+
+    launches, out = {}, {}
+    # (a) The lock watchdog around a serving run.
+    tracer = LockTracer()
+    tracer.install()
+    try:
+        from waternet_tpu_torch.bench import _serving_population
+        from waternet_tpu_torch.inference_engine import InferenceEngine
+        from waternet_tpu_torch.ops import kernels
+        from waternet_tpu_torch.serving import derive_buckets
+        from waternet_tpu_torch.serving.loadgen import run_load
+        from waternet_tpu_torch.serving.server import ServingServer
+
+        images, shapes = _serving_population(SERVE["n"], SERVE["base"])
+        ladder = derive_buckets(shapes, max_buckets=SERVE["max_buckets"])
+        engine = InferenceEngine(weights=WEIGHTS, device_preprocess=True, device=dev, dtype=torch.bfloat16)
+        server = ServingServer(engine, ladder, max_batch=SERVE["max_batch"], max_wait_ms=5.0, replicas=1,
+                               max_queue=256)
+        pngs = [_png(im) for im in images[: WATCH["requests"]]]
+        server.start_background(timeout=60)
+        try:
+            server.wait_ready(timeout=300)
+            kernels.reset_launches()
+            rep = run_load(server.url, pngs, concurrency=SERVE["concurrency"], total=len(pngs))
+            status, _, recs = stream_session(server.bound_port, pngs[: WATCH["stream_frames"]],
+                                             {"X-Stream-Budget-Ms": "60000"})
+            torch.cuda.synchronize()
+            launches["watch_X_serving"] = dict(kernels.LAUNCHES)
+        finally:
+            server.request_drain()
+            code = server.join(timeout=300)
+    finally:
+        tracer.uninstall()
+    check(code == 0, f"X(a): the server's drain exited {code}")
+    check(rep["ok"] == len(pngs) and rep["errors"] == 0, f"X(a): load report {rep}")
+    kinds = [r[0] for r in recs]
+    check(status == 200 and kinds == [b"F"] * WATCH["stream_frames"] + [b"Z"], f"X(a): stream records {kinds}")
+    check(launches["watch_X_serving"] == NO_LAUNCH, f"X(a): launches {launches['watch_X_serving']}")
+
+    def rel(site):
+        path, _, line = site.rpartition(":")
+        p = Path(path)
+        return f"{p.relative_to(REPO) if p.is_relative_to(REPO) else p.name}:{line}"
+
+    edges = sorted(f"{rel(a)} -> {rel(b)}" for a, b in tracer.edges)
+    out["a"] = {"requests": len(pngs), "stream_frames": WATCH["stream_frames"],
+                "lock_sites": [rel(s) for s in tracer.sites], "edges": edges,
+                "cycle": tracer.cycle()}
+    print(json.dumps({"run": "X(a) lock watchdog", **out["a"], "card": card}), flush=True)
+    tracer.assert_acyclic()
+    del server, engine
+
+    # (b) The sync watch over T2's bf16 steps.
+    from waternet_tpu_torch.data.synthetic import SyntheticPairs
+    from waternet_tpu_torch.resilience import DivergenceSentinel, EpochControl
+    from waternet_tpu_torch.training.trainer import TrainConfig, TrainingEngine, step_generator
+
+    # Which operations the debug mode reports, each alone (R003's list).
+    x = torch.arange(-4.0, 4.0, device=dev)
+    host = torch.ones(8)
+    ev = torch.cuda.Event()
+    ops = {
+        "torch.cuda.synchronize()": torch.cuda.synchronize,
+        "Event.synchronize()": ev.synchronize,
+        "Stream.synchronize()": lambda: torch.cuda.current_stream().synchronize(),
+        ".item()": lambda: x.sum().item(),
+        ".cpu()": x.cpu,
+        "float()": lambda: float(x.sum()),
+        "nonzero()": x.nonzero,
+        "mask indexing": lambda: x[x > 0],
+        "torch.equal()": lambda: torch.equal(x, x),
+        "pageable .to(device)": lambda: host.to(dev),
+        "torch.tensor(device=)": lambda: torch.tensor([1.0, 2.0], device=dev),
+        "pinned non_blocking .to(device)": lambda: host.pin_memory().to(dev, non_blocking=True),
+    }
+    seen = {}
+    for name, fn in ops.items():
+        ev.record()
+        with SyncWatch(torch) as w:
+            fn()
+        seen[name] = bool(w.records)
+    print(json.dumps({"run": "X(b) what set_sync_debug_mode reports", "reported": seen, "card": card}), flush=True)
+    check(seen[".item()"] and seen["Stream.synchronize()"] and not seen["pinned non_blocking .to(device)"],
+          f"X(b): the debug mode reports {seen}")
+
+    n_steps = WATCH["steps"]
+    cfg = TrainConfig(batch_size=T2["batch"], im_height=T2["hw"], im_width=T2["hw"], precision="bf16",
+                      cache_codec="raw", precache_histeq=False, seed=SEED)
+    ds = SyntheticPairs(n_steps * T2["batch"], T2["hw"], T2["hw"], seed=SEED)
+    engine = TrainingEngine(cfg, device=dev)
+    engine.cache_dataset(ds, np.arange(len(ds)))
+    step_fn, cache_args = engine.cached_train_step()
+    runs = {}
+    for run, control in (("no_sentinel", None),
+                         ("sentinel_window_2", EpochControl(sentinel=DivergenceSentinel(window=WATCH["window"])))):
+        with SyncWatch(torch) as watch:
+
+            def payloads():
+                batches = engine._cached_index_batches(engine._cache_len, 0, True, 0)
+                for count, (idx, n_real) in enumerate(batches):
+                    yield count, {"idx": idx, "n_real": n_real}
+                watch.tag = "epoch_end"  # the dispatch loop asked for more: it is over
+
+            def dispatch(count, payload):
+                watch.tag = f"step_{count + 1}"
+                m = engine._post_step(step_fn(*cache_args, payload["idx"], step_generator(SEED, 0, count),
+                                               payload["n_real"]))
+                watch.tag = f"after_step_{count + 1}"
+                return m
+
+            kernels.reset_launches()
+            watch.tag = "epoch_start"
+            means = engine._drive_train_epoch(payloads(), dispatch, control)
+            torch.cuda.synchronize()
+            launches[f"watch_X_train_{run}"] = dict(kernels.LAUNCHES)
+        check(all(math.isfinite(v) for v in means.values()), f"X(b) {run}: {means}")
+        want = dict(NO_LAUNCH, tile_lut=n_steps, clahe_lut_planes=n_steps)
+        check(launches[f"watch_X_train_{run}"] == want, f"X(b) {run}: launches {launches[f'watch_X_train_{run}']}")
+        # Each step's syncs (its window fetch included), by site.
+        per_step = {f"step_{k}": {} for k in range(1, n_steps + 1)}
+        for tag, site in watch.records:
+            counts = per_step.setdefault(tag.replace("after_", ""), {})
+            counts[site] = counts.get(site, 0) + 1
+        warm = sum(sum(per_step[f"step_{k}"].values()) for k in range(2, n_steps + 1))
+        runs[run] = {"syncs_by_step": per_step, "syncs_per_warm_step": warm / (n_steps - 1),
+                     "sites": sorted({site for _, site in watch.records})}
+    static = set()
+    models = [parse_model(f) for f in collect_py_files([REPO / t for t in DEFAULT_TARGETS])]
+    for f in lint_models(models, ["R003"]):
+        static.add(f"{Path(f.path).resolve().relative_to(REPO)}:{f.line}")
+    missed = sorted({s for r in runs.values() for s in r["sites"]} - static)
+    out["b"] = {"steps": n_steps, "batch": T2["batch"], "hw": T2["hw"], "precision": "bf16",
+                "runs": runs, "static_r003_sites": len(static), "missed_by_r003": missed}
+    print(json.dumps({"run": "X(b) sync watch", **out["b"], "card": card}), flush=True)
+    check(not missed, f"X(b): synchronizing sites the static R003 does not report: {missed}")
+    check(all(s for r in runs.values() for s in r["sites"]), "X(b): a sync outside waternet_tpu_torch")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 def free_port() -> int:
     import socket
 
@@ -2976,17 +3229,25 @@ def main() -> int:
                                            g["ya"], g["xa"])
 
         blend_parent = parent_path()
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         torch.cuda.synchronize()
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         err_lut = (luts_k - luts_p).abs().max().item()
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         err_planes = (planes_k - planes_p).abs().max().item()
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         err_blend = (blend_k - blend_p).abs().max().item()
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         check(torch.equal(luts_k, luts_p), f"tile_lut != plain at {tag} {n}x{h}x{w}")
         check(
+            # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
             torch.equal(planes_k, planes_p),
             f"clahe_lut_planes != plain at {tag} {n}x{h}x{w}",
         )
         check(blend_k.shape == (n, h, w), f"clahe_lut_blend shape {tuple(blend_k.shape)}")
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         check(torch.equal(blend_k, blend_p), f"clahe_lut_blend != plain at {tag} {n}x{h}x{w}")
+        # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
         check(torch.equal(blend_k, blend_parent),
               f"clahe_lut_blend != the planes kernel + eager blend at {tag}")
 
@@ -3069,6 +3330,7 @@ def main() -> int:
             sweep = {}
             for k in (1, 2, 4, 8):
                 plan = kernels.TilePlan(k, vec, 256, n * ty * tx * k)
+                # jaxlint: disable-next=R003 smoke check: reads the result back to compare or time it
                 check(torch.equal(kernels.tile_lut(l_pad, (ty, tx), clip, scale, plan=plan), luts_p),
                       f"tile_lut at K={k} != plain at {tag}")
                 sweep[k] = device_ms(
@@ -3220,6 +3482,10 @@ def main() -> int:
     launches.update(run_multi(torch, dev, card, t1_dir))
     shutil.rmtree(t1_dir, ignore_errors=True)
     lap("15 M multi-GPU")
+
+    # 16. X: the analyzer's runtime companions (lock order, syncs a step).
+    launches.update(run_watchdogs(torch, dev, card))
+    lap("16 X watchdogs")
     print(json.dumps({"phase_s": phase_s, "total_s": sum(phase_s.values())}), flush=True)
 
     kernels_line = []

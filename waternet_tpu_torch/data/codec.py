@@ -160,6 +160,7 @@ def _device_tables(device: torch.device) -> Dict[str, torch.Tensor]:
     for all the work queued on the device."""
 
     def dev(a):
+        # jaxlint: disable-next=R003 first-call table (lru_cache per device): a blocking copy, safe on every stream
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return {

@@ -73,7 +73,9 @@ def _imagenet_stats(device: torch.device):
     Made outside inference mode, since autograd saves ``std``."""
     with torch.inference_mode(False):
         return (
+            # jaxlint: disable-next=R003 first-call table (lru_cache per device): a blocking copy, safe on every stream
             torch.from_numpy(IMAGENET_MEAN).to(device),
+            # jaxlint: disable-next=R003 first-call table (lru_cache per device): a blocking copy, safe on every stream
             torch.from_numpy(IMAGENET_STD).to(device),
         )
 

@@ -70,6 +70,7 @@ def _geometry(h: int, w: int, ty: int, tx: int, device: torch.device):
         return c - np.floor(c)
 
     def dev(a):
+        # jaxlint: disable-next=R003 per-shape geometry (lru_cache): a blocking copy, safe on every stream
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return {

@@ -107,7 +107,9 @@ _U8_LSHIFT = -((16 * 255 * (1 << _LAB_FP_SHIFT2) + 50) // 100)
 def _u8_tables(device: torch.device):
     """The two lookup tables on ``device``, copied once per device."""
     return (
+        # jaxlint: disable-next=R003 first-call table (lru_cache per device): a blocking copy, safe on every stream
         torch.from_numpy(_U8_GAMMA_TAB).to(device),
+        # jaxlint: disable-next=R003 first-call table (lru_cache per device): a blocking copy, safe on every stream
         torch.from_numpy(_U8_CBRT_TAB).to(device),
     )
 

@@ -29,6 +29,7 @@ def gamma_correction_np(img: np.ndarray, gamma: float = GAMMA) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _device_lut(gamma: float, device: torch.device) -> torch.Tensor:
+    # jaxlint: disable-next=R003 first-call table (lru_cache per device): a blocking copy, safe on every stream
     return torch.from_numpy(_lut(gamma)).to(device)
 
 

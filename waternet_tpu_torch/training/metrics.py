@@ -35,6 +35,7 @@ def _gaussian_window(kernel_size: int, sigma: float, channels: int, device: torc
     k2d = np.outer(g, g).astype(np.float32)
     window = np.ascontiguousarray(np.broadcast_to(k2d, (channels, 1) + k2d.shape))
     with torch.inference_mode(False):
+        # jaxlint: disable-next=R003 first-call table (lru_cache per device): a blocking copy, safe on every stream
         return torch.from_numpy(window).to(device)
 
 
@@ -68,7 +69,9 @@ def ssim_per_image(
     elif torch.is_tensor(data_range):
         dr = data_range.to(torch.float32)
     else:
-        dr = torch.tensor(data_range, dtype=torch.float32, device=preds.device)
+        # A fill on the device: a tensor made from host data would wait for
+        # the device (a copy from pageable memory).
+        dr = torch.full((), data_range, dtype=torch.float32, device=preds.device)
     c1 = (k1 * dr) ** 2
     c2 = (k2 * dr) ** 2
 

@@ -224,6 +224,7 @@ def _fetch_floats(per_step: list) -> list:
     floats, read back in one copy."""
     if not per_step:
         return []
+    # jaxlint: disable-next=R003 one batched read of the metrics: after the loop, or once a sentinel window
     flat = torch.stack([v.detach().float().reshape(()) for m in per_step for v in m.values()]).cpu().tolist()
     out, i = [], 0
     for m in per_step:
