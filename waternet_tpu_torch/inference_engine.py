@@ -67,6 +67,7 @@ import torch
 
 from waternet_tpu_torch.hub import build_model, check_dtype, resolve_weights, run_model
 from waternet_tpu_torch.models import quant
+from waternet_tpu_torch.obs.stages import stage_clock
 from waternet_tpu_torch.ops.transform import transform_batch, transform_np
 from waternet_tpu_torch.utils.device import resolve_device
 from waternet_tpu_torch.utils.tensor import ten2arr, to_device
@@ -351,7 +352,18 @@ class InferenceEngine(_ServingEngineBase):
         runs asynchronously); :func:`~waternet_tpu_torch.utils.tensor.
         ten2arr` waits and converts. A data-sharded engine preprocesses
         and runs each shard on its own device; a spatially sharded one
-        preprocesses the whole batch on its first device."""
+        preprocesses the whole batch on its first device.
+
+        With the trace recorder armed, each shard part records the stage
+        spans ``engine.upload`` (from the call's entry or the previous
+        part's end to the host-to-device copy enqueued; args ``frames``,
+        ``bytes``), ``engine.preprocess`` (device preprocessing: WB, GC,
+        CLAHE and the four ``/255``; host preprocessing: ``transform_np``
+        and the stacking, once, before the uploads, with no device time)
+        and ``engine.forward``, each stage on the device with its
+        ``device_ms`` (``obs/stages.py``). On the host branch the ``/255``
+        of the uploaded planes is in ``engine.forward``."""
+        stages = stage_clock()
         if len(rgb_batch) == 0:
             raise ValueError(
                 "enhance_async got an empty batch: enhancement needs at "
@@ -361,21 +373,31 @@ class InferenceEngine(_ServingEngineBase):
         rgb_batch, n_real = self._pad_for_shards(rgb_batch)
         self._note_shape(("native", tuple(np.shape(rgb_batch)), self.device), padded=False)
         model = self.model  # one read: a reload swaps the attribute whole
+        outs, done = [], 0
         if self.device_preprocess:
             rgb = torch.as_tensor(np.ascontiguousarray(rgb_batch, dtype=np.uint8))
-            outs = []
             for dev, m, (part,) in self._shard_parts(model, self.device, rgb):
-                part = to_device(part, dev)
+                frames, done = max(0, min(len(part), n_real - done)), done + len(part)
+                part = to_device(part, dev, before_copy=stages.begin)
+                stages.end("engine.upload", dev, frames=frames, bytes=part.numel())
+                stages.begin(dev)
                 wb, gc, he = transform_batch(part)
-                x = part.to(torch.float32) / 255.0
-                outs.append(self._run(m, x, wb / 255.0, he / 255.0, gc / 255.0))
+                x, wb, he, gc = part.to(torch.float32) / 255.0, wb / 255.0, he / 255.0, gc / 255.0
+                stages.end("engine.preprocess", dev, frames=frames)
+                stages.begin(dev)
+                outs.append(self._run(m, x, wb, he, gc))
+                stages.end("engine.forward", dev, frames=frames)
             return self._gather(outs)[:n_real]
         wb, gc, he = zip(*(transform_np(np.asarray(f)) for f in rgb_batch))
         host = torch.from_numpy(np.stack([np.stack(a) for a in (list(rgb_batch), wb, he, gc)]))
-        outs = []
+        stages.end("engine.preprocess", self.device, frames=n_real)
         for dev, m, (part,) in self._shard_parts(model, self.device, host, dim=1):
-            planes = to_device(part.contiguous(), dev).to(torch.float32) / 255.0
-            outs.append(self._run(m, *planes.unbind(0)))
+            frames, done = max(0, min(part.shape[1], n_real - done)), done + part.shape[1]
+            planes = to_device(part.contiguous(), dev, before_copy=stages.begin)
+            stages.end("engine.upload", dev, frames=frames, bytes=planes.numel())
+            stages.begin(dev)
+            outs.append(self._run(m, *(planes.to(torch.float32) / 255.0).unbind(0)))
+            stages.end("engine.forward", dev, frames=frames)
         return self._gather(outs)[:n_real]
 
     # ------------------------------------------------------------------
@@ -542,15 +564,23 @@ class StudentEngine(_ServingEngineBase):
     def enhance_async(self, rgb_batch) -> torch.Tensor:
         """Enqueue the enhancement and return the (N, H, W, 3) float32 result
         on the engine's device without waiting (the oversize fallback's
-        path, one new shape key per unique shape)."""
+        path, one new shape key per unique shape). Armed, it records the
+        stage spans ``engine.upload`` and ``engine.forward`` (the ``/255``
+        and the student), as :meth:`InferenceEngine.enhance_async` does."""
+        stages = stage_clock()
         if len(rgb_batch) == 0:
             raise ValueError(
                 "enhance_async got an empty batch: enhancement needs at "
                 "least one (H, W, 3) frame"
             )
         self._note_shape(("native", tuple(np.shape(rgb_batch)), self.device), padded=False)
-        rgb = to_device(torch.as_tensor(np.ascontiguousarray(rgb_batch, dtype=np.uint8)), self.device)
-        return self._fused(self.model, rgb)
+        rgb = to_device(torch.as_tensor(np.ascontiguousarray(rgb_batch, dtype=np.uint8)), self.device,
+                        before_copy=stages.begin)
+        stages.end("engine.upload", self.device, frames=len(rgb), bytes=rgb.numel())
+        stages.begin(self.device)
+        out = self._fused(self.model, rgb)
+        stages.end("engine.forward", self.device, frames=len(rgb))
+        return out
 
     @torch.inference_mode()
     def enhance_padded_async(self, images, bucket_hw, n_slots=None, params=None, device=None):

@@ -4,10 +4,15 @@
     python -m waternet_tpu_torch.stage_profile --train [--shape 8x256x256] \
         [--precision fp32] [--codec dct8] [--precache] [--reps 3]
 
-Inference: runs the stages of ``InferenceEngine(device_preprocess=True).
-enhance`` one after another, as the engine runs them, with CUDA events
-between stages; ``--precision bf16`` gives the engine bf16 autocast.
-Weights are the committed trained fixture; frames are made from a seed.
+Inference: ``InferenceEngine(device_preprocess=True).enhance`` with the
+trace recorder armed, so the stages are the engine's own spans
+(``engine.upload``, ``engine.preprocess``, ``engine.forward``,
+``readback.wait``, ``readback.copy``; ``obs/stages.py``) and their device
+time comes from the CUDA events the engine records around each (the
+readback's: its uint8 cast; the copy into pageable memory has none);
+``--precision bf16`` gives the engine bf16 autocast. Weights are the
+committed trained fixture; frames are made from a seed. The profiler's
+kernel names (``profiled_request``) split the preprocessing further.
 ``--train``: one cached train step of ``TrainingEngine``,
 the engine's own, with a CUDA event at each of its stage hooks (gather
 and decode, preprocess, forward, losses, backward, optimizer, metrics),
@@ -32,13 +37,10 @@ import numpy as np
 import torch
 
 from waternet_tpu_torch.inference_engine import InferenceEngine
-from waternet_tpu_torch.ops.clahe import clahe
-from waternet_tpu_torch.ops.color import lab_u8_to_rgb, rgb_to_lab_u8
-from waternet_tpu_torch.ops.gamma import gamma_correction
-from waternet_tpu_torch.ops.wb import white_balance
+from waternet_tpu_torch.obs import trace
+from waternet_tpu_torch.obs.stages import CAT
 from waternet_tpu_torch.utils.device import gpu_card_line
 from waternet_tpu_torch.utils.synthetic import photo_frames
-from waternet_tpu_torch.utils.tensor import ten2arr, to_device
 
 WEIGHTS = Path(__file__).resolve().parent.parent / "tests/fixtures/distill/teacher.npz"
 
@@ -54,29 +56,34 @@ def _event_stamp(events):
     return stamp
 
 
-def _staged(engine, batch, events):
-    """One request through the engine's device-preprocess stages, recording
-    a CUDA event after each; returns the uint8 result."""
-    stamp = _event_stamp(events)
-    stamp("start")
-    rgb = to_device(torch.as_tensor(batch), engine.device)
-    stamp("upload")
-    wb = white_balance(rgb)
-    stamp("white_balance")
-    gc = gamma_correction(rgb)
-    stamp("gamma")
-    lab = rgb_to_lab_u8(rgb)
-    stamp("lab_forward")
-    el = clahe(lab[..., 0])
-    stamp("clahe")
-    he = lab_u8_to_rgb(torch.cat([el[..., None], lab[..., 1:]], dim=-1))
-    stamp("lab_inverse")
-    x = rgb.to(torch.float32) / 255.0
-    out = engine.forward(x, wb / 255.0, he / 255.0, gc / 255.0)
-    stamp("forward")
-    res = ten2arr(out)
-    stamp("download")
-    return res
+def engine_stages(engine, batch, reps: int) -> tuple:
+    """``reps`` calls of ``engine.enhance(batch)`` with the process's trace
+    recorder armed (reset before each; disarmed and reset after) ->
+    ({stage: [device ms]}, {stage: [host ms]}, [call ms]): each of the
+    engine's and the readback's spans, the device lists holding the stages
+    that carry ``device_ms`` (none on the CPU)."""
+    rec = trace.recorder()
+    device_ms: dict[str, list[float]] = {}
+    host_ms: dict[str, list[float]] = {}
+    calls = []
+    try:
+        for _ in range(reps):
+            rec.reset()
+            rec.enable()
+            t0 = time.perf_counter()
+            engine.enhance(batch)
+            calls.append((time.perf_counter() - t0) * 1e3)
+            rec.disable()
+            for name, cat, ph, _, dur, _, args in rec.snapshot()[0]:
+                if cat != CAT or ph != "X":
+                    continue
+                host_ms.setdefault(name, []).append(dur * 1e3)
+                if args and "device_ms" in args:
+                    device_ms.setdefault(name, []).append(args["device_ms"])
+    finally:
+        rec.disable()
+        rec.reset()
+    return device_ms, host_ms, calls
 
 
 def _profile(fn) -> dict:
@@ -170,31 +177,18 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     engine = InferenceEngine(weights=WEIGHTS, device_preprocess=True, dtype=dtype)
     batch = photo_frames(np.random.default_rng(0), n, h, w)
-    want = engine.enhance(batch)  # warm-up, and the reference output
-
-    stage_ms: dict[str, list[float]] = {}
-    latency = []
-    with torch.inference_mode():
-        for _ in range(args.reps):
-            events = []
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = _staged(engine, batch, events)
-            latency.append((time.perf_counter() - t0) * 1e3)
-            diff = np.abs(got.astype(np.int16) - want.astype(np.int16)).max()
-            if diff > 1:
-                raise SystemExit(f"staged request differs from enhance() by {diff}")
-            for (_, a), (name, b) in zip(events, events[1:]):
-                stage_ms.setdefault(name, []).append(a.elapsed_time(b))
-
-    medians = {k: statistics.median(v) for k, v in stage_ms.items()}
+    engine.enhance(batch)  # warm-up
+    torch.cuda.synchronize()
+    device_ms, host_ms, calls = engine_stages(engine, batch, args.reps)
+    medians = {k: statistics.median(v) for k, v in device_ms.items()}
     print(json.dumps({
         "shape": [n, h, w],
         "precision": args.precision,
         "card": gpu_card_line(),
         "stage_ms": medians,
         "stage_sum_ms": sum(medians.values()),
-        "latency_ms": statistics.median(latency),
+        "stage_host_ms": {k: statistics.median(v) for k, v in host_ms.items()},
+        "latency_ms": statistics.median(calls),
         "profiled_request": _profile(lambda: engine.enhance(batch)),
     }))
 

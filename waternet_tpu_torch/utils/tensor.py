@@ -4,9 +4,12 @@ layout is the JAX package's NHWC; the model permutes inside)."""
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
+
+from waternet_tpu_torch.obs import stages, trace
 
 
 def arr2ten(arr, device="cpu") -> torch.Tensor:
@@ -18,22 +21,57 @@ def arr2ten(arr, device="cpu") -> torch.Tensor:
     return ten
 
 
+def _to_u8(ten: torch.Tensor) -> torch.Tensor:
+    return (ten.detach().clamp(0.0, 1.0) * 255).to(torch.uint8)
+
+
 def ten2arr(ten: torch.Tensor) -> np.ndarray:
     """float NHWC [0, 1] -> uint8 NHWC [0, 255] (clipped, truncated), as host
     numpy. The uint8 cast runs where the tensor lives, so a CUDA result
-    crosses to the host at a quarter of the float bytes."""
-    return (ten.detach().clamp(0.0, 1.0) * 255).to(torch.uint8).cpu().numpy()
+    crosses to the host at a quarter of the float bytes.
+
+    With the trace recorder armed, records ``readback.wait`` (until the
+    device has finished the cast, with the cast's ``device_ms``) and
+    ``readback.copy`` (the copy to the host and ``.numpy()``), then lands
+    the pending stage spans the device has passed. The copy is left out of
+    the device bracket: into pageable memory it goes at the host's pace,
+    so an event after it would count the host's page faults as device
+    time (the profiler's ``Memcpy DtoH`` times it)."""
+    if not trace.enabled():
+        return _to_u8(ten).cpu().numpy()
+    t0 = time.perf_counter()
+    args = {"frames": ten.shape[0] if ten.dim() == 4 else 1}
+    start = stages.device_event(ten.device)
+    u8 = _to_u8(ten)
+    cast = stages.device_event(ten.device)
+    if cast is not None:
+        cast.synchronize()  # where .cpu() would wait anyway
+        args["device_ms"] = start.elapsed_time(cast)
+    t1 = time.perf_counter()
+    trace.record_span("readback.wait", stages.CAT, t0, t1, args=args)
+    out = u8.cpu().numpy()
+    trace.record_span("readback.copy", stages.CAT, t1, time.perf_counter(),
+                      args={"frames": args["frames"], "bytes": out.nbytes})
+    trace.resolve_pending()
+    return out
 
 
-def to_device(t: torch.Tensor, device) -> torch.Tensor:
+def to_device(t: torch.Tensor, device, before_copy=None) -> torch.Tensor:
     """Copy a host tensor to ``device`` without making the host wait for
     the device: to CUDA through pinned memory, asynchronously (a copy from
     pageable memory would wait for the stream's queued work). A tensor
-    already on a CUDA device is moved as is."""
+    already on a CUDA device is moved as is. ``before_copy(device)``, if
+    given, is called once the host's staging is done, right before the
+    copy is enqueued (the engine's stage timing starts there)."""
     device = torch.device(device)
     if device.type != "cuda" or t.is_cuda:
+        if before_copy is not None:
+            before_copy(device)
         return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    t = t.pin_memory()
+    if before_copy is not None:
+        before_copy(device)
+    return t.to(device, non_blocking=True)
 
 
 def start_readback(t: torch.Tensor):
