@@ -33,8 +33,9 @@ Phases; any failure exits non-zero, and nothing below is caught:
 5. the inference path, ``InferenceEngine(device_preprocess=True)`` on
    CUDA with the committed trained weights, answering R1 (4 x 1080x1920,
    batched 1080p video frames), R2 (1 x 723x1001) and R3 (2 x 251x333),
-   with the CLAHE kernels' launch counters read around that run; R3 again
-   on the CPU port, which must agree within one uint8 level;
+   with the CLAHE kernels' launch counters read around that run, and
+   ``conv_bias_act``'s: 17 a request, one a convolution; R3 again on the
+   CPU port, which must agree within one uint8 level;
 6. the two kernels of the training slice against their plain versions,
    bit for bit: ``dct8_dequant_idct`` (f32 blocks) and ``dct8_decode_u8``
    (the whole decode to cropped uint8 images, which must also equal the
@@ -44,7 +45,11 @@ Phases; any failure exits non-zero, and nothing below is caught:
    1,326 (2 x 100x130); ``tile_histogram`` at the five L planes of phase
    3, where ``luts_from_hist(tile_histogram(l))`` must also equal
    ``tile_lut(l)``; with the same timings as phase 3, and for the decode
-   also the replaced path's time;
+   also the replaced path's time; then ``conv_bias_act`` in bf16 at the
+   1080p forward's outputs, 4 x 1080x1920 with C = 128, 64 and 32 (ReLU)
+   and 3 (sigmoid), byte for byte against its plain version and against
+   the library pair ``y.add_(b).relu_()`` (``.sigmoid_()``), with the
+   kernel's, the plain version's and the pair's times and the bytes bound;
 7. training on the card from ``SyntheticPairs(seed=0)``, perceptual loss
    on, each epoch's launches read around it:
    T1 ``python -m waternet_tpu_torch.train`` as a subprocess, dct8 device
@@ -306,6 +311,10 @@ REQUESTS = {"R1": (4, 1080, 1920), "R2": (1, 723, 1001), "R3": (2, 251, 333)}
 DCT8_SHAPES = {"main": (16, 256, 256), "half": (8, 256, 256), "odd": (3, 104, 136),
                "crop": (2, 100, 130)}
 TIMING_REPS = 25
+# conv_bias_act at the bf16 1080p forward's outputs: WaterNet's widths, the
+# 3-channel one under the CMG's sigmoid; 17 launches a forward.
+EPILOGUE = dict(n=4, h=1080, w=1920, channels=(128, 64, 32, 3))
+FORWARD_CONVS = 17
 T1 = dict(synthetic=64, val_size=8, epochs=2, batch=8, hw=256)
 T2 = dict(synthetic=64, val_size=8, epochs=2, batch=16, hw=112)
 T3 = dict(batch=4, hw=64)
@@ -630,6 +639,55 @@ def new_kernels_phase(torch, dev, flush, card, planes) -> dict:
     return summary
 
 
+def conv_epilogue_phase(torch, dev, flush, card) -> dict:
+    """Phase 6, last part: ``conv_bias_act`` against its plain version and
+    the library pair, byte for byte, at :data:`EPILOGUE`'s shapes; returns
+    the 128-channel row. Timed in place on one tensor: each run reads and
+    writes it whole, whatever its values have become."""
+    from waternet_tpu_torch.ops import kernels
+
+    n, h, w = EPILOGUE["n"], EPILOGUE["h"], EPILOGUE["w"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(dev).manual_seed(SEED)
+    cl = torch.channels_last
+    main = None
+    for c in EPILOGUE["channels"]:
+        act = "sigmoid" if c == 3 else "relu"
+        y0 = torch.randn((n, h, w, c), device=dev, generator=gen).to(torch.bfloat16).permute(0, 3, 1, 2)
+        b = torch.randn(c, device=dev, generator=gen) * 0.1
+        b16 = b.to(torch.bfloat16).reshape(1, -1, 1, 1)
+
+        def library(y):
+            y.add_(b16)
+            return y.relu_() if act == "relu" else y.sigmoid_()
+
+        got = kernels.conv_bias_act(y0.clone(memory_format=cl), b, act)
+        want = kernels.conv_bias_act_plain(y0.clone(memory_format=cl), b, act)
+        lib = library(y0.clone(memory_format=cl))
+        bits = (got.view(torch.int16), want.view(torch.int16), lib.view(torch.int16))
+        check(torch.equal(bits[0], bits[1]) and torch.equal(bits[0], bits[2]),
+              f"conv_bias_act != plain or add_ + {act}_ at C={c}")
+        del got, want, lib, bits
+        y = y0.clone(memory_format=cl)
+        nbytes = 2 * y.numel() * y.element_size() + c * 4
+        b_ms, b_by = bound(nbytes)
+        r = {
+            "ms": device_ms(torch, lambda: kernels.conv_bias_act(y, b, act), flush),
+            "plain_ms": device_ms(torch, lambda: kernels.conv_bias_act_plain(y, b, act), flush),
+            "library_ms": device_ms(torch, lambda: library(y), flush),
+            "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+        }
+        plan = {"ctas": kernels.epilogue_ctas(y.numel() // 8, c, 8, sms), "threads": 256, "vec": 8}
+        kernel_line("conv_bias_act", f"{c}ch", {"n": n, "c": c, "h": h, "w": w, "act": act,
+                                                 "dtype": "bf16"}, r, card,
+                    roofline_pct=100.0 * b_ms / r["ms"], equals_library_pair=True, plan=plan)
+        if c == EPILOGUE["channels"][0]:
+            main = r
+        del y0, y
+    torch.cuda.empty_cache()
+    return main
+
+
 def records(stdout: str, tag: str) -> list:
     """Every ``<tag> {...}`` JSON record in a run's stdout, in order.
 
@@ -674,15 +732,23 @@ def train_cli(tag: str, args: list, keep=None):
     return stats, config, proc.stdout
 
 
+def tpu_launches(counts: dict) -> dict:
+    """The four TPU kernels' launches of a ``kernels.LAUNCHES`` snapshot.
+    ``conv_bias_act`` (no TPU kernel's port: 17 a forward wherever WaterNet
+    runs on the card without grad) is held in phase 5, 17 a request."""
+    return {k: counts[k] for k in REPLACES}
+
+
 def check_launches(tag: str, s: dict, want: dict, totals: dict):
     """``want``: part ("train", "val") -> (launches per step, steps[,
-    launches outside the steps]). An epoch's launches must be the product
-    plus those outside the steps (a precache table built in the epoch,
-    one launch a chunk); adds them to ``totals``."""
+    launches outside the steps]). An epoch's launches of the TPU kernels
+    must be the product plus those outside the steps (a precache table
+    built in the epoch, one launch a chunk); adds them to ``totals``."""
     for part, (per_step, n, *outside) in want.items():
         w = {k: v * n + (outside[0].get(k, 0) if outside else 0) for k, v in per_step.items()}
-        check(s["launches"][part] == w, f"{tag} epoch {s['epoch']}: {part} launches {s['launches'][part]}, want {w}")
-        for k, v in s["launches"][part].items():
+        got = tpu_launches(s["launches"][part])
+        check(got == w, f"{tag} epoch {s['epoch']}: {part} launches {got}, want {w}")
+        for k, v in got.items():
             totals[k] = totals.get(k, 0) + v
 
 
@@ -757,7 +823,7 @@ def run_t2(torch, dev, card) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         val = engine.eval_epoch_cached(ds, val_idx)
-        launches = dict(kernels.LAUNCHES)
+        launches = tpu_launches(kernels.LAUNCHES)
         for k, v in list(train.items()) + list(val.items()):
             check(math.isfinite(v), f"T2 epoch {epoch + 1}: {k} = {v}")
         want = {"dct8_dequant_idct": 0, "tile_lut": steps + 1, "clahe_lut_planes": steps + 1,
@@ -1019,7 +1085,7 @@ def t4_cached_in_process(torch, dev) -> list:
         train = engine.train_epoch_cached(epoch)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        train_launches = dict(kernels.LAUNCHES)
+        train_launches = tpu_launches(kernels.LAUNCHES)
         kernels.reset_launches()
         val = engine.eval_epoch_cached(ds, val_idx)
         torch.cuda.synchronize()
@@ -1027,7 +1093,7 @@ def t4_cached_in_process(torch, dev) -> list:
             "epoch": epoch + 1, "steps": steps, "train_s": train_s, "val_s": time.perf_counter() - t0 - train_s,
             "train_images_per_s": len(train_idx) / train_s, "step_ms": train_s / steps * 1e3,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev), "train": train, "val": val,
-            "val_pipeline": {}, "launches": {"train": train_launches, "val": dict(kernels.LAUNCHES)},
+            "val_pipeline": {}, "launches": {"train": train_launches, "val": tpu_launches(kernels.LAUNCHES)},
         })
     del engine
     torch.cuda.empty_cache()
@@ -1122,8 +1188,9 @@ def run_t5(card) -> dict:
         check(build["hbm_cache_bytes"] == want_bytes == config["cache_resident_bytes"],
               f"{tag}: resident {build['hbm_cache_bytes']}, want {want_bytes}")
         want_build = dict(NO_LAUNCH, **table_chunks(n_train, t["batch"]))
-        check(build["launches"] == want_build, f"{tag}: table build launches {build['launches']}, want {want_build}")
-        for k, v in build["launches"].items():
+        got = tpu_launches(build["launches"])
+        check(got == want_build, f"{tag}: table build launches {got}, want {want_build}")
+        for k, v in got.items():
             totals[k] = totals.get(k, 0) + v
         check(len(stats) == t["epochs"], f"{tag}: {len(stats)} epoch lines")
         for s in stats:
@@ -1181,7 +1248,7 @@ def run_t5_exact(torch, dev, card) -> None:
             epoch = engine.train_epoch_cached(0)
             torch.cuda.synchronize()
             runs[how] = {"views": views, "metrics": [{k: v.item() for k, v in m.items()} for m in metrics],
-                         "epoch": epoch, "launches": dict(kernels.LAUNCHES), "pre": engine._cache_pre,
+                         "epoch": epoch, "launches": tpu_launches(kernels.LAUNCHES), "pre": engine._cache_pre,
                          "pair": engine._cache_enc["raw"]}
     finally:
         torch.backends.cudnn.deterministic = deterministic
@@ -1371,7 +1438,7 @@ def run_video(torch, dev, card, r1_fp32: dict) -> dict:
         # The counted pass: the stream as the CLI runs it.
         kernels.reset_launches()
         pairs, stats, dt_first = stream_pass(engine, clip)
-        counted = dict(kernels.LAUNCHES)
+        counted = tpu_launches(kernels.LAUNCHES)
         check(len(pairs) == v["frames"], f"V: the stream gave {len(pairs)} frames, want {v['frames']}")
         check(stats == {"frames_decoded": v["frames"]}, f"V: ingest {stats}")
         want = dict(NO_LAUNCH, tile_lut=n_batches, clahe_lut_planes=n_batches)
@@ -1561,7 +1628,7 @@ def run_resume_engine(torch, dev, card, tag: str) -> dict:
             for e in range(t["epochs"]):
                 m_full = epoch(full, e, control=EpochControl(preemption=guard))
             torch.cuda.synchronize()
-            launches_full = dict(kernels.LAUNCHES)
+            launches_full = tpu_launches(kernels.LAUNCHES)
             want_full = {k: v * steps * t["epochs"] for k, v in per_step.items()}
             check(launches_full == want_full, f"{tag} uninterrupted: launches {launches_full}, want {want_full}")
             want_state = state_tensors(torch, full)
@@ -1582,7 +1649,7 @@ def run_resume_engine(torch, dev, card, tag: str) -> dict:
             finally:
                 faults.clear()
             torch.cuda.synchronize()
-            launches_cut = dict(kernels.LAUNCHES)
+            launches_cut = tpu_launches(kernels.LAUNCHES)
             guard.requested = False
             leaked = [th.name for th in threading.enumerate() if th.name.startswith("waternet-pipeline")]
             check(not leaked, f"{tag}: pipeline threads left after the preemption: {leaked}")
@@ -1608,7 +1675,7 @@ def run_resume_engine(torch, dev, card, tag: str) -> dict:
             m_res = epoch(res, got["epoch"], start_batch=got["batch_index"], carry=got["partial_metrics"],
                           control=EpochControl(preemption=guard))
             torch.cuda.synchronize()
-            launches_res = dict(kernels.LAUNCHES)
+            launches_res = tpu_launches(kernels.LAUNCHES)
             got_state = state_tensors(torch, res)
     finally:
         torch.backends.cudnn.deterministic = deterministic
@@ -1662,7 +1729,7 @@ def run_resume_nan(torch, dev, card) -> dict:
     finally:
         faults.clear()
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches = tpu_launches(kernels.LAUNCHES)
     dispatched = steps + (steps - 1)
     want = {k: v * dispatched for k, v in dict(CLAHE_ONLY, dct8_dequant_idct=1).items()}
     finite = all(bool(torch.isfinite(p).all()) for p in eng.model.parameters())
@@ -1727,9 +1794,9 @@ def run_resume_cli(torch, card) -> dict:
     col = {k: header.index(k) for k in ("mfu_live", "hbm_peak_bytes")}
     kernels_in_trace = {k: k in trace_text for k in ("clahe_tile_lut_kernel", "clahe_lut_blend_kernel")}
     for s in stats_cut + stats_res:
-        for k, v in s["launches"]["train"].items():
+        for k, v in tpu_launches(s["launches"]["train"]).items():
             totals[k] = totals.get(k, 0) + v
-        for k, v in s["launches"]["val"].items():
+        for k, v in tpu_launches(s["launches"]["val"]).items():
             totals[k] = totals.get(k, 0) + v
     metrics = [v for s in stats_res for v in list(s["train"].values()) + list(s["val"].values())]
     line = {
@@ -1825,7 +1892,7 @@ def serve_over_http(engine, ladder, images, extra=()):
         spans = span_breakdown()
         extra_reps = [run_load(server.url, [_png(im)], concurrency=1, total=1, keep_bodies=True)
                       for im in extra]
-        launches = dict(kernels.LAUNCHES)
+        launches = tpu_launches(kernels.LAUNCHES)
     finally:
         server.request_drain()
         code = server.join(timeout=300)
@@ -1983,7 +2050,7 @@ def run_serving(torch, dev, card) -> dict:
         kernels.reset_launches()
         outs, card_counts = fault_counters(engine, [images[i] for i in idx], bucket, plan)
         torch.cuda.synchronize()
-        launches[f"serving_S3_{plan.split('@')[0]}"] = dict(kernels.LAUNCHES)
+        launches[f"serving_S3_{plan.split('@')[0]}"] = tpu_launches(kernels.LAUNCHES)
         for i, o in zip(idx, outs):
             check(np.array_equal(o, s1[i]), f"S3 {plan}: an answer differs from S1's")
         _, cpu_counts = fault_counters(cpu, small, (40, 48), plan)
@@ -2037,7 +2104,7 @@ def r1_run(torch, tag: str, engine, frames, card, **extra) -> dict:
     p50, lat = timed_p50(torch, lambda: engine.enhance(frames))
     line = {"run": tag, "shape": list(frames.shape), "latency_ms_p50": p50 * 1e3,
             "latency_ms": [t * 1e3 for t in lat], "frames_per_s": len(frames) / p50,
-            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": dict(kernels.LAUNCHES),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": tpu_launches(kernels.LAUNCHES),
             "profiled": _profile(lambda: engine.enhance(frames)), **extra, "card": card}
     print(json.dumps(line), flush=True)
     return line
@@ -2095,7 +2162,7 @@ def run_fast_tier(torch, dev, card) -> dict:
     kernels.reset_launches()
     out_card = card_q.enhance(r3)
     torch.cuda.synchronize()
-    launches["fast_F2_int8_request"] = dict(kernels.LAUNCHES)
+    launches["fast_F2_int8_request"] = tpu_launches(kernels.LAUNCHES)
     want_l = dict(NO_LAUNCH, tile_lut=1, clahe_lut_planes=1)
     check(launches["fast_F2_int8_request"] == want_l, f"F2 launches {launches['fast_F2_int8_request']}")
     d = np.abs(out_card.astype(np.int16) - cpu_q.enhance(r3).astype(np.int16))
@@ -2301,7 +2368,7 @@ def run_two_tier(torch, dev, card) -> dict:
         still_held = sum(not h.done() for h in held)
         for h in held:
             h.result(timeout=300)
-        launches = dict(kernels.LAUNCHES)
+        launches = tpu_launches(kernels.LAUNCHES)
         stats = server.stats.summary()
     finally:
         server.request_drain()
@@ -2442,7 +2509,7 @@ def run_streams(torch, dev, card) -> dict:
         finally:
             trace.disable()
         torch.cuda.synchronize()
-        launches["streams_St_bucketed"] = dict(kernels.LAUNCHES)
+        launches["streams_St_bucketed"] = tpu_launches(kernels.LAUNCHES)
         trace_path = Path(tempfile.mkdtemp(prefix="chip-smoke-trace-")) / "streams.json"
         trace.export(str(trace_path))
         n = st["streams"] * st["frames"]
@@ -2468,7 +2535,7 @@ def run_streams(torch, dev, card) -> dict:
         kernels.reset_launches()
         status, _, recs = stream_session(port, [_png(oversize)], {"X-Stream-Budget-Ms": "60000"})
         torch.cuda.synchronize()
-        launches["streams_St_oversize"] = dict(kernels.LAUNCHES)
+        launches["streams_St_oversize"] = tpu_launches(kernels.LAUNCHES)
         check(status == 200 and [r[0] for r in recs] == [b"F", b"Z"], f"St(b): oversize records {[r[:3] for r in recs]}")
         check(np.array_equal(_unpng(recs[0][3]), quality.enhance(oversize[None])[0]),
               "St(b): the oversize frame differs from enhance at its native shape")
@@ -2719,7 +2786,7 @@ def multi_requests(torch, card, tag, engines, frames, want_launches, bound, ref_
         kernels.reset_launches()
         out_f = engine.enhance_async(frames)
         out = ten2arr(out_f)
-        grew = dict(kernels.LAUNCHES)
+        grew = tpu_launches(kernels.LAUNCHES)
         want = {k: want_launches[name] * int(k in ("tile_lut", "clahe_lut_planes")) for k in grew}
         check(grew == want, f"M {tag} {name}: launches {grew}, want {want}")
         launches[name] = grew
@@ -2798,7 +2865,7 @@ def run_multi(torch, dev, card, t1_dir: Path) -> dict:
             t0 = time.perf_counter()
             answers[name] = batcher.map_ordered(images)
             dt = time.perf_counter() - t0
-            launches[f"multi_batcher_{name}"] = dict(kernels.LAUNCHES)
+            launches[f"multi_batcher_{name}"] = tpu_launches(kernels.LAUNCHES)
             summary = batcher.stats.summary()
         finally:
             batcher.close()
@@ -3030,7 +3097,7 @@ def run_watchdogs(torch, dev, card) -> dict:
             status, _, recs = stream_session(server.bound_port, pngs[: WATCH["stream_frames"]],
                                              {"X-Stream-Budget-Ms": "60000"})
             torch.cuda.synchronize()
-            launches["watch_X_serving"] = dict(kernels.LAUNCHES)
+            launches["watch_X_serving"] = tpu_launches(kernels.LAUNCHES)
         finally:
             server.request_drain()
             code = server.join(timeout=300)
@@ -3117,7 +3184,7 @@ def run_watchdogs(torch, dev, card) -> dict:
             watch.tag = "epoch_start"
             means = engine._drive_train_epoch(payloads(), dispatch, control)
             torch.cuda.synchronize()
-            launches[f"watch_X_train_{run}"] = dict(kernels.LAUNCHES)
+            launches[f"watch_X_train_{run}"] = tpu_launches(kernels.LAUNCHES)
         check(all(math.isfinite(v) for v in means.values()), f"X(b) {run}: {means}")
         want = dict(NO_LAUNCH, tile_lut=n_steps, clahe_lut_planes=n_steps)
         check(launches[f"watch_X_train_{run}"] == want, f"X(b) {run}: launches {launches[f'watch_X_train_{run}']}")
@@ -3370,14 +3437,14 @@ def main() -> int:
     kernels.reset_launches()
     outs = {}
     for name, batch in batches.items():
-        before = dict(kernels.LAUNCHES)
+        before = dict(kernels.LAUNCHES)  # phase 5 keeps the whole counter
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = engine.enhance(batch)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        want = {k: int(k in clahe_kernels) for k in grew}
+        want = dict({k: int(k in clahe_kernels) for k in REPLACES}, conv_bias_act=FORWARD_CONVS)
         check(grew == want, f"{name}: launches {grew}, want {want}")
         check(out.dtype == np.uint8 and out.shape == batch.shape, f"{name}: output {out.dtype} {out.shape}")
         outs[name] = out
@@ -3385,7 +3452,7 @@ def main() -> int:
             "request": name, "shape": list(batch.shape), "latency_ms": dt * 1e3,
             "frames_per_s": len(batch) / dt, "launches": grew, "card": card,
         }), flush=True)
-    launches = {"inference": dict(kernels.LAUNCHES)}
+    launches = {"inference": dict(kernels.LAUNCHES)}  # with conv_bias_act's
     check(all(launches["inference"][k] == len(REQUESTS) for k in clahe_kernels),
           f"inference path launches {launches['inference']}")
 
@@ -3422,6 +3489,7 @@ def main() -> int:
 
     # 6. The training slice's kernels against their plain versions.
     summary.update(new_kernels_phase(torch, dev, flush, card, planes))
+    summary["conv_bias_act"] = conv_epilogue_phase(torch, dev, flush, card)
     del flush, planes
     torch.cuda.empty_cache()
 
@@ -3503,6 +3571,13 @@ def main() -> int:
                                       ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}}
                if "f32_planes_kernel" in r else {}),
         })
+    r = summary["conv_bias_act"]
+    by_path = {path: counts["conv_bias_act"] for path, counts in launches.items() if "conv_bias_act" in counts}
+    kernels_line.append({
+        "name": "conv_bias_act", "route": "cuda", "source": "waternet_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": None, "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -102,8 +102,12 @@ def test_cpu_tensors_route_to_plain_and_leave_counters():
         13, 21,
     )
     assert u8.dtype == torch.uint8 and u8.shape == (2, 13, 21, 3) and bool((u8 == 128).all())
+    y = torch.full((1, 3, 2, 2), -1.0).contiguous(memory_format=torch.channels_last)
+    assert kernels.conv_bias_act(y, torch.tensor([0.5, 1.5, 2.5]), "relu") is y
+    assert torch.equal(y[0, :, 0, 0], torch.tensor([0.0, 0.5, 1.5]))
     assert kernels.LAUNCHES == {
         "tile_lut": 0, "clahe_lut_planes": 0, "tile_histogram": 0, "dct8_dequant_idct": 0,
+        "conv_bias_act": 0,
     }
 
 
@@ -218,15 +222,16 @@ def test_dct8_decode_plan(shape, vec):
 
 
 def test_kernel_source_and_build_flags():
-    assert [p.name for p in _build.SOURCES] == ["clahe.cu", "codec.cu"]
+    assert [p.name for p in _build.SOURCES] == ["clahe.cu", "codec.cu", "conv_epilogue.cu"]
     src = "\n".join(p.read_text() for p in _build.SOURCES)
     for name in ("clahe_tile_lut_kernel", "clahe_lut_planes_kernel",
                  "clahe_tile_histogram_kernel", "dct8_dequant_idct_kernel",
                  "dct8_decode_u8_kernel", "waternet_clahe_tile_lut",
                  "waternet_clahe_lut_planes", "waternet_clahe_tile_histogram",
-                 "waternet_dct8_dequant_idct", "waternet_dct8_decode_u8"):
+                 "waternet_dct8_dequant_idct", "waternet_dct8_decode_u8",
+                 "conv_bias_act_kernel", "waternet_conv_bias_act"):
         assert name in src
-    clahe_src, codec_src = (p.read_text() for p in _build.SOURCES)
+    clahe_src, codec_src, epilogue_src = (p.read_text() for p in _build.SOURCES)
     # tile_lut and tile_histogram share their histogram phase, under one
     # cluster launch whose CTAs meet in distributed shared memory.
     assert clahe_src.count("tile_bin_count<V>(l, hp, wp, ty, tx)") == 2
@@ -249,6 +254,11 @@ def test_kernel_source_and_build_flags():
     # The uint8 epilogue rounds half to even, as torch.round.
     assert "rintf(__fadd_rn(acc, 128.0f))" in codec_src
     assert "rintf" in src and "roundf" not in src
+    # The conv epilogue rounds as ATen's add then relu/sigmoid: the sum
+    # rounds to T before the activation, the sigmoid is 1 / (1 + expf(-v))
+    # with the accurate expf.
+    assert "round_to<T>(__fadd_rn(to_float(p.v[j]), b[j]))" in epilogue_src
+    assert "1.0f / (1.0f + expf(-v))" in epilogue_src and "__expf(" not in epilogue_src
     assert _build.ARCH == "sm_90a"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)

@@ -55,6 +55,7 @@ KERNEL_WRAPPERS = frozenset(
         "clahe_lut_blend",
         "dct8_dequant_idct",
         "dct8_decode_u8",
+        "conv_bias_act",
     )
 )
 

@@ -4,17 +4,32 @@ The same math as the JAX package's Flax model (waternet_tpu/models/
 waternet.py:34-93), as ``nn.Module``s whose submodule and attribute names
 are the reference's torch keys, ``{cmg,wb_refiner,ce_refiner,gc_refiner}.
 conv{k}.{weight,bias}`` — so the reference's exported state_dict loads with
-``load_state_dict`` as is. Convolutions go to cuDNN through ``nn.Conv2d``;
-the JAX package left them to XLA too. 1,090,668 parameters.
+``load_state_dict`` as is. Convolutions go to cuDNN; the JAX package left
+them to XLA too. 1,090,668 parameters.
+
+Where the bias and activation run follows what the forward can observe
+(:func:`fuse_epilogue`). On a CUDA input with grad off (inference, the
+engines, serving, the distillation teacher) and nothing tracing the
+module, each convolution runs in cuDNN without its bias, and one
+hand-written in-place pass, ``ops/kernels.py::conv_bias_act``, adds the
+bias and applies the ReLU or the sigmoid, to the bytes ATen's separate
+passes give: 17 launches a forward. XLA fused both into its convolutions;
+PyTorch's cuDNN path would run them as two more passes over every output.
+Elsewhere (the CPU, training under grad, ``torch.export`` and
+``torch.compile``) the forward is ``nn.Conv2d``'s biased convolution
+followed by ``torch.relu``/``torch.sigmoid``.
 
 Inputs and output are NHWC, as at every public function of the port; the
-model permutes to NCHW inside.
+model permutes to NCHW inside, so the convolutions run channels-last.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from waternet_tpu_torch.ops.kernels import conv_bias_act
 
 # (in, out, kernel) per conv; the reference's net.py:12-70 and the JAX
 # package's _CMG_SPEC / _REFINER_SPEC.
@@ -25,9 +40,29 @@ _CMG_SPEC = (
 _REFINER_SPEC = ((6, 32, 7), (32, 32, 5), (32, 3, 3))
 
 
+_ACTS = {"relu": torch.relu, "sigmoid": torch.sigmoid}
+
+
 def _add_convs(module: nn.Module, spec) -> None:
     for i, (cin, cout, k) in enumerate(spec):
         module.add_module(f"conv{i + 1}", nn.Conv2d(cin, cout, k, padding=k // 2))
+
+
+def fuse_epilogue(x) -> bool:
+    """True where the convolutions leave their bias and activation to
+    ``conv_bias_act``: ``x`` is a CUDA tensor, grad is off, and nothing is
+    tracing the module (``torch.compile``, ``torch.export``: an exported
+    artifact runs without this package)."""
+    return x.is_cuda and not torch.is_grad_enabled() and not torch.compiler.is_compiling()
+
+
+def conv_act(conv: nn.Conv2d, x: torch.Tensor, act: str, fused: bool) -> torch.Tensor:
+    """``act(conv(x))``; ``fused``: cuDNN's convolution without the bias,
+    then the bias and ``act`` in one in-place pass over its output."""
+    if not fused:
+        return _ACTS[act](conv(x))
+    y = F.conv2d(x, conv.weight, None, conv.stride, conv.padding, conv.dilation, conv.groups)
+    return conv_bias_act(y, conv.bias, act)
 
 
 class ConfidenceMapGenerator(nn.Module):
@@ -39,9 +74,12 @@ class ConfidenceMapGenerator(nn.Module):
         self.n_convs = len(_CMG_SPEC)
 
     def forward(self, x):
+        fused = fuse_epilogue(x)
+        if fused:
+            x = x.contiguous(memory_format=torch.channels_last)
         for i in range(1, self.n_convs):
-            x = torch.relu(getattr(self, f"conv{i}")(x))
-        out = torch.sigmoid(getattr(self, f"conv{self.n_convs}")(x))
+            x = conv_act(getattr(self, f"conv{i}"), x, "relu", fused)
+        out = conv_act(getattr(self, f"conv{self.n_convs}"), x, "sigmoid", fused)
         return out[:, 0:1], out[:, 1:2], out[:, 2:3]
 
 
@@ -53,9 +91,12 @@ class Refiner(nn.Module):
         _add_convs(self, _REFINER_SPEC)
 
     def forward(self, x):
-        x = torch.relu(self.conv1(x))
-        x = torch.relu(self.conv2(x))
-        return torch.relu(self.conv3(x))
+        fused = fuse_epilogue(x)
+        if fused:
+            x = x.contiguous(memory_format=torch.channels_last)
+        x = conv_act(self.conv1, x, "relu", fused)
+        x = conv_act(self.conv2, x, "relu", fused)
+        return conv_act(self.conv3, x, "relu", fused)
 
 
 def _conv_flops(h: int, w: int, cin: int, cout: int, k: int) -> int:

@@ -130,6 +130,7 @@ def load() -> ctypes.CDLL:
         "waternet_dct8_decode_u8": [
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
         ],
+        "waternet_conv_bias_act": [ptr, ptr, i32, i32, i32, ctypes.c_longlong, i32, i32, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
