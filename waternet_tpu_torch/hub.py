@@ -200,3 +200,46 @@ def waternet_student(
         return ten2arr(model_out)
 
     return preprocess, postprocess, model
+
+
+def restormer_params(weights=None, params=None) -> dict:
+    """Restormer's state_dict from ``params`` (a loaded state_dict) or the
+    ``weights`` path (``.pth``/``.pt``, official layout, bare or under
+    ``params``). One of the two must be given: no Restormer checkpoint is
+    resolved implicitly, and none is bundled."""
+    from waternet_tpu_torch.models.restormer import restormer_state_dict
+
+    if params is None:
+        if weights is None:
+            raise FileNotFoundError(
+                "Restormer needs explicit weights: pass weights=PATH (the official "
+                "state_dict, e.g. basicsr's .pth, loads strictly) or params=state_dict"
+            )
+        params = resolve_weights(weights)
+    return restormer_state_dict(params)
+
+
+def restormer(
+    weights=None, params=None, dtype: torch.dtype = torch.float32, device="cuda"
+) -> Tuple[Callable, Callable, Callable]:
+    """Build Restormer's ``(preprocess, postprocess, model)`` triple
+    (``models/restormer.py``). ``weights``/``params`` as
+    :func:`restormer_params` takes them; the configuration comes from the
+    weights. ``preprocess`` maps one uint8 HWC RGB array to a (1, H, W, 3)
+    float32 tensor in [0, 1] on ``device``; ``model(x)`` is the
+    ``Restormer`` (``dtype=torch.bfloat16``: bf16 autocast over fp32
+    parameters, float32 out). Each frame runs whole: its attention is
+    global over the frame."""
+    from waternet_tpu_torch.models.restormer import build_restormer
+
+    dev = resolve_device(device)
+    check_dtype(dtype)
+    model = build_restormer(restormer_params(weights, params), dev, dtype)
+
+    def preprocess(rgb_arr):
+        return arr2ten(rgb_arr, dev)
+
+    def postprocess(model_out):
+        return ten2arr(model_out)
+
+    return preprocess, postprocess, model

@@ -10,6 +10,9 @@
     python -m waternet_tpu_torch.inference --source img_dir --tier fast \\
         --student-weights tests/fixtures/distill/student.npz [--quantize]
 
+    python -m waternet_tpu_torch.inference --source clip.mp4 --arch restormer \\
+        --restormer-weights restormer.pth [--precision bf16]
+
 Outputs land in ``<output-root>/<name or next number>/`` under the source
 file names (a video as ``<stem>.mp4``), as the JAX package's
 ``inference.py`` writes them. A directory of images goes through the
@@ -38,9 +41,12 @@ downgrades, each reported at the end. ``--spatial-shards N`` splits each
 image's height over N cards (the exact halo scheme of
 ``parallel/spatial.py``) and ``--data-shards N`` each batch over N cards;
 either needs N visible cards and exits non-zero naming the count
-otherwise (the CPU runs N shards on itself). ``--download`` is accepted
-for the JAX CLI's sake and exits 2: the port fetches nothing over the
-network. Runs on CUDA unless ``--device cpu``.
+otherwise (the CPU runs N shards on itself). ``--arch restormer
+--restormer-weights W`` runs Restormer (raw RGB in, official state_dict
+layout) over images, directories (in exact-shape batches: its attention
+is global over a frame, so it is never padded to a bucket) and videos.
+``--download`` is accepted for the JAX CLI's sake and exits 2: the port
+fetches nothing over the network. Runs on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -151,6 +157,17 @@ def parse_args(argv=None):
     )
     p.add_argument("--student-weights", help="CAN student checkpoint for --tier fast (a train --distill product).")
     p.add_argument(
+        "--arch", default="waternet", choices=["waternet", "restormer"],
+        help="The network: 'waternet' (default; --tier picks the quality pipeline or the student) or "
+        "'restormer' (raw RGB in; needs --restormer-weights; whole frames only, so a directory "
+        "runs in exact-shape batches).",
+    )
+    p.add_argument(
+        "--restormer-weights",
+        help="--arch restormer: a state_dict in the official Restormer layout (.pth/.pt, bare or "
+        "under 'params').",
+    )
+    p.add_argument(
         "--allow-downgrade", action="store_true",
         help="--serve-url only: opt into brown-out downgrades (X-Tier-Allow-Downgrade: 1): a "
         "saturated server may serve quality requests from the fast tier instead of shedding "
@@ -180,6 +197,17 @@ def parse_args(argv=None):
     if args.tier == "fast" and (args.device_preprocess or args.spatial_shards > 1 or args.data_shards > 1):
         p.error("--tier fast is incompatible with --device-preprocess/--spatial-shards/--data-shards: "
                 "the student has no preprocessing to move and fits on one card by design")
+    if args.arch == "restormer":
+        if not args.restormer_weights:
+            p.error("--arch restormer needs --restormer-weights (no Restormer checkpoint is resolved "
+                    "implicitly)")
+        if (args.tier == "fast" or args.device_preprocess or args.quantize or args.serve_url
+                or args.spatial_shards > 1 or args.data_shards > 1):
+            p.error("--arch restormer runs whole frames locally on one device in fp32 or bf16: it takes "
+                    "no --tier fast, --device-preprocess, --quantize, --serve-url, --spatial-shards or "
+                    "--data-shards (its attention is global over each frame)")
+    elif args.restormer_weights:
+        p.error("--restormer-weights is for --arch restormer")
     return args
 
 
@@ -508,10 +536,12 @@ def main(argv=None):
 
     import torch
 
-    from waternet_tpu_torch.inference_engine import InferenceEngine, StudentEngine
+    from waternet_tpu_torch.inference_engine import InferenceEngine, RestormerEngine, StudentEngine
 
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
-    if args.tier == "fast":
+    if args.arch == "restormer":
+        engine = RestormerEngine(weights=args.restormer_weights, dtype=dtype, device=args.device)
+    elif args.tier == "fast":
         # The distilled CAN student: raw RGB in, no WB/GC/CLAHE anywhere;
         # calibrated (with --quantize) on raw frames only.
         engine = StudentEngine(
@@ -537,7 +567,9 @@ def main(argv=None):
             raise SystemExit(f"--spatial-shards {args.spatial_shards} --data-shards {args.data_shards}: {e}")
     savedir = next_run_dir(Path(args.output_root), args.name)
     if images:
-        if source.is_dir() and not args.exact_shapes:
+        # Restormer refuses the bucketed path (a padded canvas changes its
+        # global attention): its directories batch exact shapes.
+        if source.is_dir() and not args.exact_shapes and args.arch != "restormer":
             stats = run_images_bucketed(
                 engine, images, savedir, args.show_split, args.batch_size, args.workers,
                 buckets=args.serve_buckets, max_wait_ms=args.max_wait_ms,

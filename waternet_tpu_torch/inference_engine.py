@@ -55,6 +55,12 @@ no WB, GC or CLAHE anywhere. It implements the same serving interface
 the batcher serves it as a second tier on the same ladder
 (``DynamicBatcher(fast_engine=...)``); its native and padded paths are one
 function, uint8 -> /255 -> student.
+
+:class:`RestormerEngine` serves Restormer (``models/restormer.py``) on the
+same raw path (``_RawEngineBase``: uint8 -> /255 -> model, with the
+``engine.upload`` and ``engine.forward`` spans), whole frames only: its
+attention is global over the frame, so it refuses ``spatial_shards`` and
+the padded, bucketed entry points (:data:`GLOBAL_ATTENTION`).
 """
 
 from __future__ import annotations
@@ -490,7 +496,42 @@ class InferenceEngine(_ServingEngineBase):
         return self._gather(outs)
 
 
-class StudentEngine(_ServingEngineBase):
+class _RawEngineBase(_ServingEngineBase):
+    """The raw-RGB engines' native path: uint8 frames -> ``/255`` -> the
+    model, with no WB/GC/CLAHE anywhere. A subclass sets ``model`` (an
+    NHWC float [0, 1] -> NHWC float32 module) and ``device``."""
+
+    @staticmethod
+    def _fused(model, rgb_u8: torch.Tensor) -> torch.Tensor:
+        """uint8 batch (native or bucket canvas) -> enhanced float32 batch:
+        the native and padded paths are this one function."""
+        return model(rgb_u8.to(torch.float32) / 255.0)
+
+    @torch.inference_mode()
+    def enhance_async(self, rgb_batch) -> torch.Tensor:
+        """Enqueue the enhancement and return the (N, H, W, 3) float32 result
+        on the engine's device without waiting (the student's oversize
+        fallback path, one new shape key per unique shape). Armed, it
+        records the stage spans ``engine.upload`` and ``engine.forward``
+        (the ``/255`` and the model), as :meth:`InferenceEngine.
+        enhance_async` does."""
+        stages = stage_clock()
+        if len(rgb_batch) == 0:
+            raise ValueError(
+                "enhance_async got an empty batch: enhancement needs at "
+                "least one (H, W, 3) frame"
+            )
+        self._note_shape(("native", tuple(np.shape(rgb_batch)), self.device), padded=False)
+        rgb = to_device(torch.as_tensor(np.ascontiguousarray(rgb_batch, dtype=np.uint8)), self.device,
+                        before_copy=stages.begin)
+        stages.end("engine.upload", self.device, frames=len(rgb), bytes=rgb.numel())
+        stages.begin(self.device)
+        out = self._fused(self.model, rgb)
+        stages.end("engine.forward", self.device, frames=len(rgb))
+        return out
+
+
+class StudentEngine(_RawEngineBase):
     """Fast-tier inference engine: the distilled CAN student
     (``models/can.py``), raw uint8 frames in, enhanced uint8 frames out; no
     WB/GC/CLAHE anywhere, on host or device.
@@ -554,34 +595,6 @@ class StudentEngine(_ServingEngineBase):
             return quant.QuantCAN(params, device)
         return build_student(params, device, self.dtype)
 
-    @staticmethod
-    def _fused(model, rgb_u8: torch.Tensor) -> torch.Tensor:
-        """uint8 batch (native or bucket canvas) -> enhanced float32 batch:
-        the native and padded paths are this one function."""
-        return model(rgb_u8.to(torch.float32) / 255.0)
-
-    @torch.inference_mode()
-    def enhance_async(self, rgb_batch) -> torch.Tensor:
-        """Enqueue the enhancement and return the (N, H, W, 3) float32 result
-        on the engine's device without waiting (the oversize fallback's
-        path, one new shape key per unique shape). Armed, it records the
-        stage spans ``engine.upload`` and ``engine.forward`` (the ``/255``
-        and the student), as :meth:`InferenceEngine.enhance_async` does."""
-        stages = stage_clock()
-        if len(rgb_batch) == 0:
-            raise ValueError(
-                "enhance_async got an empty batch: enhancement needs at "
-                "least one (H, W, 3) frame"
-            )
-        self._note_shape(("native", tuple(np.shape(rgb_batch)), self.device), padded=False)
-        rgb = to_device(torch.as_tensor(np.ascontiguousarray(rgb_batch, dtype=np.uint8)), self.device,
-                        before_copy=stages.begin)
-        stages.end("engine.upload", self.device, frames=len(rgb), bytes=rgb.numel())
-        stages.begin(self.device)
-        out = self._fused(self.model, rgb)
-        stages.end("engine.forward", self.device, frames=len(rgb))
-        return out
-
     @torch.inference_mode()
     def enhance_padded_async(self, images, bucket_hw, n_slots=None, params=None, device=None):
         """Enqueue the bucketed student forward and return the (n_slots or
@@ -597,3 +610,60 @@ class StudentEngine(_ServingEngineBase):
         self._note_shape(("padded", (n, bh, bw, 3), dev), padded=True)
         canvas, _ = self.pad_raw_to_bucket(images, bucket_hw, n_slots)
         return self._fused(model, to_device(torch.from_numpy(canvas), dev))
+
+
+#: Why the Restormer engine runs whole frames and nothing else.
+GLOBAL_ATTENTION = (
+    "Restormer's transposed attention is global: every output pixel depends on the whole "
+    "frame through each block's channel Gram map, so a frame can neither be split into halo "
+    "tiles (spatial_shards) nor padded to a serving bucket without changing the result; "
+    "run whole frames through enhance/enhance_async"
+)
+
+
+class RestormerEngine(_RawEngineBase):
+    """Restormer (``models/restormer.py``) as an inference engine: raw uint8
+    frames in, restored uint8 frames out, through the same native path as
+    the CAN student. ``weights`` (a ``.pth``/``.pt`` state_dict in the
+    official layout, bare or under ``params``) or ``params`` (a loaded
+    state_dict) must be given: no Restormer checkpoint is resolved
+    implicitly. The configuration comes from the weights.
+
+    Each whole frame runs in one forward. ``spatial_shards`` and the
+    padded, bucketed entry points (:meth:`pad_raw_to_bucket`,
+    :meth:`warm_padded`, :meth:`enhance_padded`,
+    :meth:`enhance_padded_async`) raise ValueError (:data:`GLOBAL_ATTENTION`):
+    the attention's Gram maps reduce over the whole frame, so a tile or a
+    padded canvas gives another result."""
+
+    def __init__(
+        self,
+        weights=None,
+        params: Optional[dict] = None,
+        dtype: torch.dtype = torch.float32,
+        device="cuda",
+        spatial_shards: int = 1,
+    ):
+        from waternet_tpu_torch.hub import restormer_params
+
+        if spatial_shards != 1:
+            raise ValueError(f"spatial_shards={spatial_shards}: {GLOBAL_ATTENTION}")
+        self.device = resolve_device(device)
+        self.dtype = check_dtype(dtype)
+        self.params = restormer_params(weights, params)
+        self.model = self._build(self.params, self.device)
+        self._init_keys()
+
+    def _build(self, params, device):
+        from waternet_tpu_torch.models.restormer import build_restormer
+
+        return build_restormer(params, device, self.dtype)
+
+    def pad_raw_to_bucket(self, images, bucket_hw, n_slots=None):
+        raise ValueError(GLOBAL_ATTENTION)
+
+    def warm_padded(self, n_slots: int, bucket_hw, device=None, params=None):
+        raise ValueError(GLOBAL_ATTENTION)
+
+    def enhance_padded_async(self, images, bucket_hw, n_slots=None, params=None, device=None):
+        raise ValueError(GLOBAL_ATTENTION)

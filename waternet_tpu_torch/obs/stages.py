@@ -1,5 +1,6 @@
-"""Stage spans of the inference path (cat ``engine``), each with the
-device's time between two CUDA timing events.
+"""Stage spans of the inference path (cat ``engine``), and of a model's
+blocks (cat ``model``, ``models/restormer.py``), each with the device's
+time between two CUDA timing events.
 
 An engine call opens a :func:`stage_clock` on entry. Each stage ends with
 :meth:`StageClock.end`, which records the span from the previous stage's
@@ -45,9 +46,11 @@ def device_event(device):
 
 
 class StageClock:
-    """One call's consecutive stage spans on the host's clock."""
+    """One call's consecutive stage spans on the host's clock, in span
+    category ``cat``."""
 
-    def __init__(self):
+    def __init__(self, cat: str = CAT):
+        self._cat = cat
         self._t = time.perf_counter()
         self._start = None
 
@@ -60,7 +63,7 @@ class StageClock:
         called, on ``device``) with ``args``; the next stage starts here."""
         end = device_event(device) if self._start is not None else None
         t = time.perf_counter()
-        trace.record_span_timed(name, CAT, self._t, t, self._start, end, args)
+        trace.record_span_timed(name, self._cat, self._t, t, self._start, end, args)
         self._t, self._start = t, None
 
 
@@ -75,7 +78,7 @@ class _Disarmed:
 DISARMED = _Disarmed()
 
 
-def stage_clock():
-    """A :class:`StageClock` started now when the recorder is armed, else
-    :data:`DISARMED`."""
-    return StageClock() if trace.enabled() else DISARMED
+def stage_clock(cat: str = CAT):
+    """A :class:`StageClock` of ``cat`` started now when the recorder is
+    armed, else :data:`DISARMED`."""
+    return StageClock(cat) if trace.enabled() else DISARMED
