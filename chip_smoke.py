@@ -50,6 +50,15 @@ Phases; any failure exits non-zero, and nothing below is caught:
    and 3 (sigmoid), byte for byte against its plain version and against
    the library pair ``y.add_(b).relu_()`` (``.sigmoid_()``), with the
    kernel's, the plain version's and the pair's times and the bytes bound;
+   then ``dwconv3x3`` (Restormer's depthwise 3x3, bf16) at the full-
+   resolution blocks' widest inputs, 4 x 288 x 1080x1920 (identity, MDTA)
+   and 4 x 510 x 1080x1920 (the GELU gate, GDFN), the identity within one
+   bf16 unit in the last place of the float32 convolution and the gate
+   byte for byte the eager gate over the identity's output, with the
+   kernel's and the plain version's (ATen's depthwise kernel, and the
+   eager gate) times and the bytes bound; and one published-width bf16
+   Restormer forward of a 1080x1920 frame, 44 launches of each epilogue,
+   beside the same forward on ATen's kernels;
 7. training on the card from ``SyntheticPairs(seed=0)``, perceptual loss
    on, each epoch's launches read around it:
    T1 ``python -m waternet_tpu_torch.train`` as a subprocess, dct8 device
@@ -315,6 +324,9 @@ TIMING_REPS = 25
 # 3-channel one under the CMG's sigmoid; 17 launches a forward.
 EPILOGUE = dict(n=4, h=1080, w=1920, channels=(128, 64, 32, 3))
 FORWARD_CONVS = 17
+# dwconv3x3 at the 1080p forward's widest full-resolution inputs: (channels,
+# gate); 44 launches of each epilogue a Restormer forward.
+DWCONV = dict(n=4, h=1080, w=1920, layers=((288, False), (510, True)), blocks=44)
 T1 = dict(synthetic=64, val_size=8, epochs=2, batch=8, hw=256)
 T2 = dict(synthetic=64, val_size=8, epochs=2, batch=16, hw=112)
 T3 = dict(batch=4, hw=64)
@@ -686,6 +698,104 @@ def conv_epilogue_phase(torch, dev, flush, card) -> dict:
         del y0, y
     torch.cuda.empty_cache()
     return main
+
+
+def dwconv_phase(torch, dev, flush, card) -> dict:
+    """Phase 6, last part: ``dwconv3x3`` at :data:`DWCONV`'s shapes against
+    its plain version on the same bf16 inputs (ATen's depthwise conv, then
+    the eager gate), byte for byte; the identity also within one bf16 ulp
+    of the float32 convolution and the gate byte-equal to the eager gate
+    over the identity's own output. Then one 1080p frame through
+    ``RestormerEngine(bf16).enhance_async``, the path the benchmark times:
+    its launches, and its output against the same engine on ATen's
+    kernels. Returns {name: row}."""
+    import torch.nn.functional as F
+
+    from waternet_tpu_torch.inference_engine import RestormerEngine
+    from waternet_tpu_torch.models import restormer as rmod
+    from waternet_tpu_torch.ops import kernels
+
+    n, h, w = DWCONV["n"], DWCONV["h"], DWCONV["w"]
+    gen = torch.Generator(dev).manual_seed(SEED)
+    rows, read = {}, {}
+    for c, gate in DWCONV["layers"]:
+        name = "dwconv3x3_gelu_gate" if gate else "dwconv3x3"
+        x = torch.randn((n, c, h, w), device=dev, generator=gen).to(torch.bfloat16)
+        wt = (torch.rand((c, 1, 3, 3), device=dev, generator=gen) - 0.5) * (2 / 3)
+        y = kernels.dwconv3x3(x, wt, False)
+        worst = torch.zeros((), device=dev)  # read after the loop
+        for i in range(n):  # a frame at a time: float32 planes of 4 frames would not fit twice
+            want = F.conv2d(x[i:i + 1].float(), wt.to(torch.bfloat16).float(), padding=1, groups=c)
+            ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+            worst = torch.maximum(worst, ((y[i:i + 1].float() - want).abs() / ulp).max())
+            del want, ulp
+        eager_differ = torch.zeros((), dtype=torch.long, device=dev)
+        got = y
+        if gate:
+            y1, y2 = y.chunk(2, dim=1)
+            eager = F.gelu(y1) * y2
+            got = kernels.dwconv3x3(x, wt, True)
+            eager_differ = (got.view(torch.int16) != eager.view(torch.int16)).sum()
+            del y1, y2, eager
+        del y
+        plain = kernels.dwconv3x3_plain(x, wt, gate)
+        plain_differ = (got.view(torch.int16) != plain.view(torch.int16)).sum()
+        plain_err = (got.float() - plain.float()).abs().max()
+        del got, plain
+        out_c = c // 2 if gate else c
+        nbytes = (n * c + n * out_c) * h * w * 2 + c * 9 * 4
+        b_ms, b_by = bound(nbytes)
+        r = {
+            "ms": device_ms(torch, lambda: kernels.dwconv3x3(x, wt, gate), flush),
+            "plain_ms": device_ms(torch, lambda: kernels.dwconv3x3_plain(x, wt, gate), flush),
+            "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+        }
+        r["library_ms"] = r["plain_ms"]
+        plan = dict(zip(("rows", "vec"), kernels.dwconv_plan(h, w, x.data_ptr(), x.data_ptr(), gate)))
+        rows[name], read[name] = r, (c, gate, worst, eager_differ, plain_differ, plain_err, plan)
+        del x
+        torch.cuda.empty_cache()
+    for name, (c, gate, worst, eager_differ, plain_differ, plain_err, plan) in read.items():
+        worst, eager_differ, plain_differ, r = float(worst), int(eager_differ), int(plain_differ), rows[name]
+        r["max_abs_err"] = float(plain_err)
+        check(worst <= 1.0, f"{name}: identity {worst} bf16 ulps from the float32 convolution")
+        check(eager_differ == 0, f"{name}: {eager_differ} values != F.gelu(y1) * y2 over the identity's output")
+        check(plain_differ == 0, f"{name}: {plain_differ} values != dwconv3x3_plain (max |diff| {r['max_abs_err']})")
+        kernel_line(name, f"{c}ch", {"n": n, "c": c, "h": h, "w": w, "dtype": "bf16"}, r, card,
+                    roofline_pct=100.0 * r["bound_ms"] / r["ms"], max_ulps_vs_float32=worst,
+                    plan=plan)
+
+    # One 1080p frame through the engine the benchmark times: its launches,
+    # then the same engine with the route closed (ATen's depthwise conv and
+    # the eager gate), byte for byte.
+    with torch.random.fork_rng(devices=[dev]):
+        torch.manual_seed(SEED)
+        params = rmod.Restormer().state_dict()
+    engine = RestormerEngine(params=params, dtype=torch.bfloat16, device=dev)
+    frame = np.random.default_rng(SEED).integers(0, 256, (1, h, w, 3), dtype=np.uint8)
+    engine.enhance_async(frame)  # warm-up: the kernels' build and cuDNN's plans
+    kernels.reset_launches()
+    out = engine.enhance_async(frame)
+    got = {k: kernels.LAUNCHES[k] for k in ("dwconv3x3", "dwconv3x3_gelu_gate")}
+    route = rmod.kernel_route
+    rmod.kernel_route = lambda t: False
+    try:
+        aten = engine.enhance_async(frame)
+    finally:
+        rmod.kernel_route = route
+    check(got == dict.fromkeys(got, DWCONV["blocks"]), f"RestormerEngine.enhance_async launches {got}")
+    diff = (out - aten).abs()
+    max_diff, mean_diff = float(diff.max()), float(diff.mean())
+    check(max_diff == 0.0, f"RestormerEngine output differs from ATen's depthwise path by up to {max_diff}")
+    line = {"restormer_engine": {"shape": [1, h, w, 3], "dtype": "bf16", "launches": got,
+                                 "max_abs_diff_vs_aten": max_diff, "mean_abs_diff_vs_aten": mean_diff},
+            "card": card}
+    print(json.dumps(line), flush=True)
+    for name, r in rows.items():
+        r["launches_per_forward"] = got[name]
+    del engine, params, out, aten, diff
+    torch.cuda.empty_cache()
+    return rows
 
 
 def records(stdout: str, tag: str) -> list:
@@ -3444,7 +3554,8 @@ def main() -> int:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        want = dict({k: int(k in clahe_kernels) for k in REPLACES}, conv_bias_act=FORWARD_CONVS)
+        want = dict({k: int(k in clahe_kernels) for k in REPLACES}, conv_bias_act=FORWARD_CONVS,
+                    dwconv3x3=0, dwconv3x3_gelu_gate=0)
         check(grew == want, f"{name}: launches {grew}, want {want}")
         check(out.dtype == np.uint8 and out.shape == batch.shape, f"{name}: output {out.dtype} {out.shape}")
         outs[name] = out
@@ -3490,6 +3601,7 @@ def main() -> int:
     # 6. The training slice's kernels against their plain versions.
     summary.update(new_kernels_phase(torch, dev, flush, card, planes))
     summary["conv_bias_act"] = conv_epilogue_phase(torch, dev, flush, card)
+    summary.update(dwconv_phase(torch, dev, flush, card))
     del flush, planes
     torch.cuda.empty_cache()
 
@@ -3578,6 +3690,13 @@ def main() -> int:
         "replaces": None, "launches": sum(by_path.values()), "launches_by_path": by_path,
         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
+    for name in ("dwconv3x3", "dwconv3x3_gelu_gate"):
+        r = summary[name]
+        kernels_line.append({
+            "name": name, "route": "cuda", "source": "waternet_tpu_torch/csrc/dwconv.cu",
+            "replaces": None, "launches_per_forward": r["launches_per_forward"],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        })
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({

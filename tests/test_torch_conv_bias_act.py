@@ -1,6 +1,6 @@
 """The convolution epilogue (``ops/kernels.py::conv_bias_act``, the kernel
 in ``csrc/conv_epilogue.cu``) and WaterNet's route to it
-(``models/waternet.py::fuse_epilogue``).
+(``ops/kernels.py::kernel_route``).
 
 On the CPU: the plain version against ``act(y + b)``, and the forward's
 route, which leaves the CPU, training under grad and ``torch.export`` on
@@ -131,18 +131,18 @@ def test_route_follows_device_grad_and_tracing():
     (training) and ``torch.export`` keep the parent's ops."""
     on_card = types.SimpleNamespace(is_cuda=True)
     with torch.no_grad():
-        assert wn.fuse_epilogue(on_card)
-        assert not wn.fuse_epilogue(torch.zeros(1))
+        assert kernels.kernel_route(on_card)
+        assert not kernels.kernel_route(torch.zeros(1))
     with torch.inference_mode():
-        assert wn.fuse_epilogue(on_card)
+        assert kernels.kernel_route(on_card)
     with torch.enable_grad():
-        assert not wn.fuse_epilogue(on_card)
+        assert not kernels.kernel_route(on_card)
 
     seen = []
 
     class Probe(nn.Module):
         def forward(self, x):
-            seen.append(wn.fuse_epilogue(on_card))
+            seen.append(kernels.kernel_route(on_card))
             return x + 1
 
     with torch.no_grad():

@@ -9,6 +9,8 @@ The CUDA kernels themselves run only on the card, where ``chip_smoke.py``
 holds each against its plain version.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -105,9 +107,13 @@ def test_cpu_tensors_route_to_plain_and_leave_counters():
     y = torch.full((1, 3, 2, 2), -1.0).contiguous(memory_format=torch.channels_last)
     assert kernels.conv_bias_act(y, torch.tensor([0.5, 1.5, 2.5]), "relu") is y
     assert torch.equal(y[0, :, 0, 0], torch.tensor([0.0, 0.5, 1.5]))
+    x = torch.ones((1, 2, 3, 3))
+    gated = kernels.dwconv3x3(x, torch.full((2, 1, 3, 3), 0.5), gate=True)
+    assert gated.shape == (1, 1, 3, 3) and float(gated[0, 0, 1, 1]) == pytest.approx(
+        4.5 * 0.5 * (1 + math.erf(4.5 / math.sqrt(2))) * 4.5, rel=1e-6)
     assert kernels.LAUNCHES == {
         "tile_lut": 0, "clahe_lut_planes": 0, "tile_histogram": 0, "dct8_dequant_idct": 0,
-        "conv_bias_act": 0,
+        "conv_bias_act": 0, "dwconv3x3": 0, "dwconv3x3_gelu_gate": 0,
     }
 
 
@@ -222,16 +228,17 @@ def test_dct8_decode_plan(shape, vec):
 
 
 def test_kernel_source_and_build_flags():
-    assert [p.name for p in _build.SOURCES] == ["clahe.cu", "codec.cu", "conv_epilogue.cu"]
+    assert [p.name for p in _build.SOURCES] == ["clahe.cu", "codec.cu", "conv_epilogue.cu", "dwconv.cu"]
     src = "\n".join(p.read_text() for p in _build.SOURCES)
     for name in ("clahe_tile_lut_kernel", "clahe_lut_planes_kernel",
                  "clahe_tile_histogram_kernel", "dct8_dequant_idct_kernel",
                  "dct8_decode_u8_kernel", "waternet_clahe_tile_lut",
                  "waternet_clahe_lut_planes", "waternet_clahe_tile_histogram",
                  "waternet_dct8_dequant_idct", "waternet_dct8_decode_u8",
-                 "conv_bias_act_kernel", "waternet_conv_bias_act"):
+                 "conv_bias_act_kernel", "waternet_conv_bias_act",
+                 "dwconv3x3_kernel", "waternet_dwconv3x3"):
         assert name in src
-    clahe_src, codec_src, epilogue_src = (p.read_text() for p in _build.SOURCES)
+    clahe_src, codec_src, epilogue_src, dwconv_src = (p.read_text() for p in _build.SOURCES)
     # tile_lut and tile_histogram share their histogram phase, under one
     # cluster launch whose CTAs meet in distributed shared memory.
     assert clahe_src.count("tile_bin_count<V>(l, hp, wp, ty, tx)") == 2
@@ -259,6 +266,12 @@ def test_kernel_source_and_build_flags():
     # with the accurate expf.
     assert "round_to<T>(__fadd_rn(to_float(p.v[j]), b[j]))" in epilogue_src
     assert "1.0f / (1.0f + expf(-v))" in epilogue_src and "__expf(" not in epilogue_src
+    # The depthwise kernel's gate is ATen's exact GELU with the accurate
+    # erff, each step rounded to T as the eager path rounds.
+    assert "v * 0.5f * (1.0f + erff(v * kAlpha))" in dwconv_src and "tanhf(" not in dwconv_src
+    assert "__floats2bfloat162_rn(gelu(a0), gelu(a1))" in dwconv_src
+    assert "__hmul2(g, b)" in dwconv_src
+    assert "__expf(" not in dwconv_src and "__erff" not in dwconv_src
     assert _build.ARCH == "sm_90a"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)

@@ -56,6 +56,7 @@ KERNEL_WRAPPERS = frozenset(
         "dct8_dequant_idct",
         "dct8_decode_u8",
         "conv_bias_act",
+        "dwconv3x3",
     )
 )
 

@@ -32,11 +32,20 @@ as written, in float32):
   PixelUnshuffle and the skips' concatenations are NHWC reshapes. Each
   branch's 1x1 project-in is one batched product per call that writes
   NCHW (``W @ x^T``), so its depthwise conv runs on a contiguous NCHW
-  tensor, PyTorch's own depthwise kernel on CUDA, and the gate and the
-  attention's products read whole channel rows; the branch's last
-  product (``x^T @ W^T``) writes NHWC again. No transpose is a pass of
-  its own. (cuDNN's channels-last kernel for these depthwise widths,
-  none a multiple of 8, ran more than ten times slower on an H100.)
+  tensor and the gate and the attention's products read whole channel
+  rows; the branch's last product (``x^T @ W^T``) writes NHWC again. No
+  transpose is a pass of its own. (cuDNN's channels-last kernel for
+  these depthwise widths, none a multiple of 8, ran more than ten times
+  slower on an H100.)
+* The depthwise convs run, on CUDA with grad off and nothing tracing
+  (``ops/kernels.py::kernel_route``: the engines' inference), in one
+  hand-written kernel, ``ops/kernels.py::dwconv3x3``: MDTA's as it is,
+  GDFN's with its gate in the kernel's epilogue, so the 2h planes are
+  read once and only ``GELU(x1) * x2``'s h are written, to the eager
+  gate's bytes. 44 launches of each a forward at the published depth.
+  Elsewhere (the CPU, training under grad, ``torch.export``) they are
+  ``ops/kernels.py::dwconv3x3_plain``: ``F.conv2d`` with the modules'
+  weights, then ``chunk`` and ``F.gelu(x1) * x2``.
 * The attention never normalises q and k. The Gram products ``q k^T``
   run on the raw q and k (per frame, all heads in one batched product),
   then are divided by the float32 L2 norms of their rows:
@@ -74,6 +83,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from waternet_tpu_torch.obs.stages import stage_clock
+from waternet_tpu_torch.ops.kernels import dwconv3x3, dwconv3x3_plain, kernel_route
 
 #: The published configuration (Deblurring_Restormer.yml).
 DIM = 48
@@ -118,6 +128,16 @@ def _project_out(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     b, c, h, w = x.shape
     weight = conv.weight.flatten(1).t()
     return torch.bmm(x.reshape(b, c, h * w).transpose(1, 2), weight.expand(b, -1, -1)).view(b, h, w, -1)
+
+
+def _dwconv(conv: nn.Conv2d, x: torch.Tensor, gate: bool) -> torch.Tensor:
+    """The depthwise 3x3 ``conv`` of NCHW ``x``, and for ``gate`` GELU of
+    its first channel half times its second: one :func:`dwconv3x3` launch
+    where ``kernel_route(x)``, else its plain PyTorch ops. The kernel takes
+    the float32 weight and rounds it as autocast would."""
+    if kernel_route(x):
+        return dwconv3x3(x, conv.weight, gate)
+    return dwconv3x3_plain(x, conv.weight, gate)
 
 
 def _pixel_unshuffle(x: torch.Tensor) -> torch.Tensor:
@@ -180,7 +200,7 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
-        qkv = self.qkv_dwconv(_project_in(self.qkv, x)).flatten(2)
+        qkv = _dwconv(self.qkv_dwconv, _project_in(self.qkv, x), gate=False).flatten(2)
         q, k, v = qkv.split(c, dim=1)
         with torch.autocast(x.device.type, enabled=False):
             mixing = self._mixing(q, k)
@@ -199,8 +219,7 @@ class FeedForward(nn.Module):
         self.project_out = nn.Conv2d(hidden, dim, kernel_size=1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = self.dwconv(_project_in(self.project_in, x)).chunk(2, dim=1)
-        return _project_out(self.project_out, F.gelu(x1) * x2)
+        return _project_out(self.project_out, _dwconv(self.dwconv, _project_in(self.project_in, x), gate=True))
 
 
 class TransformerBlock(nn.Module):

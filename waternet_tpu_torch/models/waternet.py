@@ -8,9 +8,9 @@ conv{k}.{weight,bias}`` — so the reference's exported state_dict loads with
 them to XLA too. 1,090,668 parameters.
 
 Where the bias and activation run follows what the forward can observe
-(:func:`fuse_epilogue`). On a CUDA input with grad off (inference, the
-engines, serving, the distillation teacher) and nothing tracing the
-module, each convolution runs in cuDNN without its bias, and one
+(``ops/kernels.py::kernel_route``). On a CUDA input with grad off
+(inference, the engines, serving, the distillation teacher) and nothing
+tracing the module, each convolution runs in cuDNN without its bias, and one
 hand-written in-place pass, ``ops/kernels.py::conv_bias_act``, adds the
 bias and applies the ReLU or the sigmoid, to the bytes ATen's separate
 passes give: 17 launches a forward. XLA fused both into its convolutions;
@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from waternet_tpu_torch.ops.kernels import conv_bias_act
+from waternet_tpu_torch.ops.kernels import conv_bias_act, kernel_route
 
 # (in, out, kernel) per conv; the reference's net.py:12-70 and the JAX
 # package's _CMG_SPEC / _REFINER_SPEC.
@@ -46,14 +46,6 @@ _ACTS = {"relu": torch.relu, "sigmoid": torch.sigmoid}
 def _add_convs(module: nn.Module, spec) -> None:
     for i, (cin, cout, k) in enumerate(spec):
         module.add_module(f"conv{i + 1}", nn.Conv2d(cin, cout, k, padding=k // 2))
-
-
-def fuse_epilogue(x) -> bool:
-    """True where the convolutions leave their bias and activation to
-    ``conv_bias_act``: ``x`` is a CUDA tensor, grad is off, and nothing is
-    tracing the module (``torch.compile``, ``torch.export``: an exported
-    artifact runs without this package)."""
-    return x.is_cuda and not torch.is_grad_enabled() and not torch.compiler.is_compiling()
 
 
 def conv_act(conv: nn.Conv2d, x: torch.Tensor, act: str, fused: bool) -> torch.Tensor:
@@ -74,7 +66,7 @@ class ConfidenceMapGenerator(nn.Module):
         self.n_convs = len(_CMG_SPEC)
 
     def forward(self, x):
-        fused = fuse_epilogue(x)
+        fused = kernel_route(x)
         if fused:
             x = x.contiguous(memory_format=torch.channels_last)
         for i in range(1, self.n_convs):
@@ -91,7 +83,7 @@ class Refiner(nn.Module):
         _add_convs(self, _REFINER_SPEC)
 
     def forward(self, x):
-        fused = fuse_epilogue(x)
+        fused = kernel_route(x)
         if fused:
             x = x.contiguous(memory_format=torch.channels_last)
         x = conv_act(self.conv1, x, "relu", fused)

@@ -131,6 +131,7 @@ def load() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
         ],
         "waternet_conv_bias_act": [ptr, ptr, i32, i32, i32, ctypes.c_longlong, i32, i32, ptr],
+        "waternet_dwconv3x3": [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

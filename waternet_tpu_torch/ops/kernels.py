@@ -1,6 +1,6 @@
 """Wrappers of the port's CUDA kernels (``csrc/clahe.cu``,
-``csrc/codec.cu``, ``csrc/conv_epilogue.cu``), their plain PyTorch
-versions, and the launch counters.
+``csrc/codec.cu``, ``csrc/conv_epilogue.cu``, ``csrc/dwconv.cu``), their
+plain PyTorch versions, and the launch counters.
 
 A wrapper given a CPU tensor runs the plain version. Given a CUDA tensor
 it launches the kernel, after checking device, dtype, shape and
@@ -18,11 +18,14 @@ clahe_lut_blend     the same, with CLAHE's blend, rounding and crop  bytes
 dct8_dequant_idct   pallas_kernels.py:330 ``_dct8_kernel`` (:366)    bytes
 dct8_decode_u8      the same, with the decode's uint8 epilogue       operations
 conv_bias_act       none: XLA fused it into WaterNet's convolutions  bytes
+dwconv3x3           none: Restormer runs only in the port            bytes
 ==================  ===============================================  ==========
 
 ``clahe_lut_blend`` and ``dct8_decode_u8`` are TPU kernels with another
 epilogue, so their launches count under ``LAUNCHES["clahe_lut_planes"]``
-and ``LAUNCHES["dct8_dequant_idct"]``. The launch plans (:func:`tile_plan`,
+and ``LAUNCHES["dct8_dequant_idct"]``. ``dwconv3x3``'s two epilogues
+(identity and GDFN's GELU gate) count apart, under ``"dwconv3x3"`` and
+``"dwconv3x3_gelu_gate"``. The launch plans (:func:`tile_plan`,
 :func:`lut_blend_plan`, :func:`dct8_ctas`, :func:`dct8_decode_plan`) are
 pure functions of the shapes, the card's SM count and the data's address.
 
@@ -40,9 +43,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 LAUNCHES = {"tile_lut": 0, "clahe_lut_planes": 0, "tile_histogram": 0, "dct8_dequant_idct": 0,
-            "conv_bias_act": 0}
+            "conv_bias_act": 0, "dwconv3x3": 0, "dwconv3x3_gelu_gate": 0}
 
 _BINS = 256
 _MAX_SMEM = 232_448  # dynamic shared memory a Hopper CTA may opt into
@@ -61,6 +65,9 @@ _DCT_TABLE_SMEM = 16 * 64 * 4 + 16 * 4  # M and quant, staged by every dct8 CTA
 _EPI_THREADS = 256
 _EPI_CTAS_PER_SM = 4  # 4 x 16 B loads in flight a thread fill the memory pipe at 4 CTAs an SM
 _ACT_CODES = {"relu": 0, "sigmoid": 1}
+_DW_ROWS = 32  # output rows a warp of the depthwise kernel takes, at most
+_DW_GATE_ROWS = 272  # the same for its GELU gate
+_DW_COLS = 8  # columns a lane of it loads and writes
 
 
 def reset_launches() -> None:
@@ -76,6 +83,15 @@ def _route(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"the port's kernels take CPU or CUDA tensors, got {t.device}")
+
+
+def kernel_route(x) -> bool:
+    """True where a model takes its hand-written kernel route (WaterNet's
+    ``conv_bias_act``, Restormer's ``dwconv3x3``): ``x`` is a CUDA tensor,
+    grad is off, and nothing is tracing the module (``torch.compile``,
+    ``torch.export``: an exported artifact runs without this package).
+    Elsewhere the model runs its plain PyTorch ops."""
+    return x.is_cuda and not torch.is_grad_enabled() and not torch.compiler.is_compiling()
 
 
 def _check(name, t, dtype, shape, device):
@@ -694,4 +710,93 @@ def conv_bias_act(y: torch.Tensor, bias: torch.Tensor, act: str) -> torch.Tensor
     if err:
         raise RuntimeError(f"conv_bias_act_kernel launch failed: cudaError {err}")
     LAUNCHES["conv_bias_act"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# dwconv3x3: a depthwise 3x3 convolution, with GDFN's GELU gate or without
+# ---------------------------------------------------------------------------
+
+
+def dwconv_plan(h: int, w: int, x_ptr: int, y_ptr: int, gate: bool) -> tuple[int, int]:
+    """``(rows, vec)`` of a :func:`dwconv3x3` launch over (h, w) planes: the
+    output rows a warp takes, ``h`` cut into bands as even as they go of at
+    most ``_DW_ROWS`` rows, or ``_DW_GATE_ROWS`` for the gate (a band
+    re-reads the two rows around it and starts its ring anew: the gate's
+    GELU keeps its warps busy, so fewer and taller bands pay; the identity
+    waits on memory, so more and shorter ones keep more rows in flight), and
+    1 for 16-byte loads and stores (``w`` a multiple of 8, both addresses
+    16-byte aligned), else 0 for one element at a time. At 1080p: the
+    identity 32 rows at 1080 and 540, 30 at 270, 27 at 135; the gate 270
+    at 1080, 540 and 270, 135 at 135; vec 1 at every width."""
+    bands = -(-h // (_DW_GATE_ROWS if gate else _DW_ROWS))
+    vec = int(w % _DW_COLS == 0 and x_ptr % 16 == 0 and y_ptr % 16 == 0)
+    return -(-h // bands), vec
+
+
+def _check_dwconv(x: torch.Tensor, weight: torch.Tensor, gate: bool) -> None:
+    if x.ndim != 4:
+        raise ValueError(f"x: expected (N, C, H, W), got {tuple(x.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x: expected torch.bfloat16 or torch.float32, got {x.dtype}")
+    if weight.dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"weight: expected torch.float32 or {x.dtype}, got {weight.dtype}")
+    c = x.shape[1]
+    _check("weight", weight, weight.dtype, (c, 1, 3, 3), x.device)
+    if not x.is_contiguous():
+        raise ValueError("x: expected a contiguous NCHW tensor")
+    if gate and c % 2:
+        raise ValueError(f"gate: x's channels must be even (two halves), got {c}")
+
+
+def dwconv3x3_plain(x: torch.Tensor, weight: torch.Tensor, gate: bool) -> torch.Tensor:
+    """Plain version of :func:`dwconv3x3`: ``F.conv2d(..., groups=C)`` with
+    the weight in ``x``'s dtype, then for ``gate`` ``F.gelu(x1) * x2`` over
+    its two channel halves, each op rounded in ``x``'s dtype as the eager
+    path rounds."""
+    _check_dwconv(x, weight, gate)
+    y = F.conv2d(x, weight.to(x.dtype), padding=1, groups=x.shape[1])
+    if not gate:
+        return y
+    x1, x2 = y.chunk(2, dim=1)
+    return F.gelu(x1) * x2
+
+
+def dwconv3x3(x: torch.Tensor, weight: torch.Tensor, gate: bool) -> torch.Tensor:
+    """A depthwise 3x3 convolution (stride 1, zero padding 1, no bias) of a
+    contiguous NCHW ``x`` (N, C, H, W) with ``weight`` (C, 1, 3, 3): (N, C,
+    H, W), or with ``gate`` (C even, h = C / 2) ``gelu(y[:, :h]) * y[:,
+    h:]``, (N, h, H, W): Restormer's MDTA and GDFN convolutions.
+
+    CUDA: ``x`` bf16 or float32, ``weight`` float32 or of ``x``'s dtype
+    (widened to float32, exactly, for the kernel, which rounds each weight
+    to ``x``'s dtype as autocast casts it); one launch of csrc/dwconv.cu
+    under :func:`dwconv_plan`, counted under ``LAUNCHES["dwconv3x3"]`` or
+    ``LAUNCHES["dwconv3x3_gelu_gate"]``. Sums are float32; the identity
+    rounds once, within one unit in the last place of ``x``'s dtype of the
+    float32 convolution; the gate rounds each convolution, the GELU (exact
+    erf form) and the product to ``x``'s dtype, so its bytes are the eager
+    gate's over the identity's output. CPU: the plain version. There is no
+    TPU kernel behind it: Restormer runs only in the port."""
+    _check_dwconv(x, weight, gate)
+    if not _route(x):
+        return dwconv3x3_plain(x, weight, gate)
+    n, c, h, w = x.shape
+    y = torch.empty((n, c // 2 if gate else c, h, w), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    from waternet_tpu_torch.ops import _build
+
+    lib = _build.load()
+    wt = weight.float().contiguous()
+    rows, vec = dwconv_plan(h, w, x.data_ptr(), y.data_ptr(), gate)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.waternet_dwconv3x3(
+            x.data_ptr(), wt.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), int(gate),
+            n, c, h, w, rows, vec, stream,
+        )
+    if err:
+        raise RuntimeError(f"dwconv3x3_kernel launch failed: cudaError {err}")
+    LAUNCHES["dwconv3x3_gelu_gate" if gate else "dwconv3x3"] += 1
     return y
